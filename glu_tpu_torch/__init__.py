@@ -2,10 +2,15 @@
 for NVIDIA Hopper (H100).
 
 It mirrors glu_tpu's layout and public names. Ported so far: the utility
-layer and the stable LSD radix sort of u32 key/value pairs (`radix_sort`,
+layer; the stable LSD radix sort of u32 key/value pairs (`radix_sort`,
 `RadixSort`), whose engine runs three CUDA kernels (ops/_cuda_sort.py,
-csrc/radix_sort.cu). Tensors are the caller's: the device of the input is
-the device of the work. The package imports torch and never jax.
+csrc/radix_sort.cu); the reduce (`reduce`, `segmented_reduce`, `Reduce`,
+kernel K5 in csrc/reduce.cu) and the scan (`exclusive_scan`,
+`inclusive_scan`, `BlellochScan`, kernel K4 in csrc/scan.cu). A function
+given a tensor works on the tensor's device; a function that makes a tensor
+(`from_numpy`, `DeviceBuffer`, `RadixSort.prepare_internal_buffers`) puts
+it on the card unless given `device=`. The package imports torch and never
+jax.
 """
 
 from .utils.dtypes import DataType, dtype_info, to_torch_dtype, to_type_str
@@ -19,9 +24,11 @@ from .utils.math import (
     log32_floor,
     next_power_of_2,
 )
-from .utils.buffers import DeviceBuffer, copy_buffer, from_numpy, to_numpy
+from .utils.buffers import DeviceBuffer, copy_buffer, default_device, from_numpy, to_numpy
 from .utils.timing import measure_elapsed_time
 from .ops.radix_sort import RadixSort, radix_sort
+from .ops.reduce import Reduce, ReduceOperator, reduce, segmented_reduce
+from .ops.scan import BlellochScan, exclusive_scan, inclusive_scan
 
 __version__ = "0.1.0"
 
@@ -43,9 +50,17 @@ __all__ = [
     "next_power_of_2",
     "DeviceBuffer",
     "copy_buffer",
+    "default_device",
     "from_numpy",
     "to_numpy",
     "measure_elapsed_time",
     "RadixSort",
     "radix_sort",
+    "Reduce",
+    "ReduceOperator",
+    "reduce",
+    "segmented_reduce",
+    "BlellochScan",
+    "exclusive_scan",
+    "inclusive_scan",
 ]

@@ -1,11 +1,12 @@
 """Builds the hand-written CUDA kernels and loads them with ctypes.
 
 `load_library()` compiles every `csrc/*.cu` of the package with nvcc for
-Hopper (sm_90a) into one shared library with a plain C interface, at first
-use, into `_build/` beside this file (listed in .gitignore). The library's
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A failed build raises with nvcc's
-output: there is no fallback.
+Hopper (sm_90a), one nvcc process per source, all started together, and
+links the objects into one shared library with a plain C interface, at
+first use, into `_build/` beside this file (listed in .gitignore). The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is. A failed build raises
+with nvcc's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+_TIMEOUT = 600  # seconds, for the compiles and for the link
 
 _lib = None
 
@@ -51,6 +53,24 @@ def _library_path() -> pathlib.Path:
     return _BUILD / f"libglu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands at once; returns (exit code, output) of each. Every
+    process is ended before this returns, whatever happens."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outputs = [p.communicate(timeout=_TIMEOUT)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outputs)]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise GluError(f"cannot run nvcc ({' '.join(cmds[0])} ...): {e}") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> tuple[pathlib.Path, float, str]:
     """Compile the kernels if no library of the current sources exists.
     Returns (library path, seconds spent compiling, compiler output); the
@@ -60,21 +80,25 @@ def build() -> tuple[pathlib.Path, float, str]:
     if so.exists():
         return so, 0.0, log.read_text() if log.exists() else ""
     _BUILD.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{so.name}.{os.getpid()}"
+    objects = [_BUILD / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = _BUILD / f"{tag}.tmp"
     start = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise GluError(f"cannot run nvcc ({' '.join(cmd)}): {e}") from e
-    seconds = time.perf_counter() - start
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise GluError(f"nvcc failed with exit code {proc.returncode}:\n{output}")
-    log.write_text(output)
-    os.replace(tmp, so)  # atomic: a concurrent process sees no half-written library
-    return so, seconds, output
+        results = _run_all([[_nvcc(), *_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objects)])
+        output = "".join(out for _, out in results)
+        if any(rc != 0 for rc, _ in results):
+            raise GluError(f"nvcc failed:\n{output}")
+        [(rc, link_out)] = _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)]])
+        output += link_out
+        if rc != 0:
+            raise GluError(f"nvcc failed to link, exit code {rc}:\n{link_out}")
+        log.write_text(output)
+        os.replace(tmp, so)  # atomic: a concurrent process sees no half-written library
+    finally:
+        for f in [*objects, tmp]:
+            f.unlink(missing_ok=True)
+    return so, time.perf_counter() - start, output
 
 
 def load_library() -> ctypes.CDLL:
@@ -85,7 +109,7 @@ def load_library() -> ctypes.CDLL:
     so, _, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams"):
+    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_fold_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -94,7 +118,12 @@ def load_library() -> ctypes.CDLL:
     lib.glu_group_tiles.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr]
     lib.glu_scatter_runs.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr]
-    for name in ("glu_group_tiles", "glu_scatter_runs", "glu_sort_single_tile"):
+    # (input, parts, len, ctas, dtype, op, output, stream)
+    lib.glu_reduce_pass.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, ptr, ptr]
+    # (input, output, parts, len, dtype, op, carries or None, stream)
+    lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
+    for name in ("glu_group_tiles", "glu_scatter_runs", "glu_sort_single_tile", "glu_reduce_pass",
+                 "glu_scan_pass"):
         getattr(lib, name).restype = c_int
     _lib = lib
     return lib

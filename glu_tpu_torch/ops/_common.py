@@ -1,8 +1,15 @@
-"""Shared integer helpers of the kernel wrappers (counterpart of
-glu_tpu/ops/_pallas_common.py; the GPU has no interpret mode, so only the
-arithmetic carries over)."""
+"""Shared helpers of the kernel wrappers (counterpart of
+glu_tpu/ops/_pallas_common.py; the GPU has no interpret mode, so the
+arithmetic carries over, and the launch plumbing of the ctypes library takes
+the place of pallas_call's)."""
 
 from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.errors import check_argument, check_state, fail
 
 
 def round_up(n: int, m: int) -> int:
@@ -11,3 +18,34 @@ def round_up(n: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the wrapper runs its plain version); True for
+    a CUDA tensor (the wrapper launches its kernel or raises)."""
+    if t.device.type == "cpu":
+        return False
+    check_argument(t.device.type == "cuda", "no kernel for tensors on %s", t.device)
+    return True
+
+
+def kernels(**geometry: int) -> ctypes.CDLL:
+    """The kernel library (built on first use), with the compile-time
+    geometry the caller relies on checked: each keyword names a C entry
+    glu_<name>() whose value must equal the keyword's."""
+    from .. import _build
+
+    lib = _build.load_library()
+    built = {name: getattr(lib, f"glu_{name}")() for name in geometry}
+    check_state(built == geometry, "kernel geometry %s differs from the wrapper's %s", built, geometry)
+    return lib
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args) -> None:
+    """Call the library's entry `fn_name` with `args` and the current stream
+    of `device`; raise with CUDA's message if the launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        fail("%s failed: %s (cudaError %d)", fn_name, lib.glu_error_string(err).decode(), err)

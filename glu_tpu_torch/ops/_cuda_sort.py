@@ -34,9 +34,9 @@ import ctypes
 
 import torch
 
-from ..utils.errors import check_argument, check_state, fail
+from ..utils.errors import check_argument
 from ..utils.log import vlog
-from ._common import cdiv
+from ._common import cdiv, kernels, launch, on_cuda
 
 FIELD_BITS = 4          # bits per pass: one reference-visible 4-bit digit
 MAX_FIELD_BITS = 6      # widest pass K1/K2 take (64 bins)
@@ -105,37 +105,13 @@ def _check_table(t: torch.Tensor, name: str, keys: torch.Tensor, nbits: int) -> 
     check_argument(t.device == keys.device, "%s is on %s, keys on %s", name, t.device, keys.device)
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (plain version); True for a CUDA tensor."""
-    if t.device.type == "cpu":
-        return False
-    check_argument(t.device.type == "cuda", "no kernel for tensors on %s", t.device)
-    return True
-
-
-def _kernels():
-    from .. import _build
-
-    lib = _build.load_library()
-    built = (lib.glu_sort_tile(), lib.glu_sort_single_tile_max(), lib.glu_sort_max_streams())
-    check_state(
-        built == (TILE, SINGLE_TILE_MAX, MAX_STREAMS),
-        "kernel geometry %s differs from the engine's %s", built, (TILE, SINGLE_TILE_MAX, MAX_STREAMS),
-    )
-    return lib
-
-
 def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = _kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        fail("%s failed: %s (cudaError %d)", fn_name, lib.glu_error_string(err).decode(), err)
+    lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS)
+    launch(lib, fn_name, device, *args)
 
 
 def _ints(values) -> ctypes.Array:
@@ -175,7 +151,7 @@ def group_tiles(keys: torch.Tensor, payloads, positions):
     global group_tiles_launches
     streams = _check_streams(keys, payloads)
     positions = _check_positions(positions, MAX_FIELD_BITS)
-    if not _on_cuda(keys):
+    if not on_cuda(keys):
         return group_tiles_ref(keys, list(payloads), positions)
     n = keys.numel()
     outs = [torch.empty_like(s) for s in streams]
@@ -236,7 +212,7 @@ def scatter_runs(keys: torch.Tensor, payloads, counts: torch.Tensor, offsets: to
     positions = _check_positions(positions, MAX_FIELD_BITS)
     _check_table(counts, "counts", keys, len(positions))
     _check_table(offsets, "offsets", keys, len(positions))
-    if not _on_cuda(keys):
+    if not on_cuda(keys):
         return scatter_runs_ref(keys, list(payloads), counts, offsets, positions)
     outs = [torch.empty_like(s) for s in streams]
     _launch(
@@ -269,7 +245,7 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions):
         keys.numel() <= SINGLE_TILE_MAX,
         "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, keys.numel(),
     )
-    if not _on_cuda(keys):
+    if not on_cuda(keys):
         return sort_single_tile_ref(keys, list(payloads), positions)
     outs = [torch.empty_like(s) for s in streams]
     _launch(

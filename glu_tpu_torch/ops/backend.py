@@ -1,10 +1,12 @@
 """Backend selection (counterpart of glu_tpu/ops/backend.py).
 
-"cuda" is the radix engine (ops/_cuda_sort.py): on a CUDA tensor it launches
-the hand-written kernels, on a CPU tensor it runs their plain torch versions.
-"torch" is the portable path, one stable `torch.sort`, the counterpart of the
-JAX package's "xla" backend. The default is the engine; the cost-model router
-of the JAX package is not ported yet.
+"cuda" means the hand-written kernels: the radix engine (ops/_cuda_sort.py),
+the scan K4 (ops/_cuda_scan.py) and the reduce K5 (ops/_cuda_reduce.py). On
+a CUDA tensor they launch, on a CPU tensor their plain torch versions run.
+"torch" is the portable library path, the counterpart of the JAX package's
+"xla" backend: one stable `torch.sort`, torch's cumulative scans, or one
+torch reduction. The default is "cuda"; the cost-model router of the JAX
+package is not ported yet.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.buffers import DeviceBuffer
+from ..utils.buffers import DeviceBuffer, default_device
 from ..utils.errors import check_argument
 from .backend import resolve_backend
 
@@ -120,9 +120,9 @@ class RadixSort:
     def prepare_internal_buffers(
         self, count: int, *, backend: str | None = None, device=None
     ) -> None:
-        """Warm the sort for `count` pairs on `device` (default: torch's
-        default device)."""
-        k = torch.zeros(count, dtype=torch.int32, device=device).view(torch.uint32)
+        """Warm the sort for `count` pairs on `device` (default: the card;
+        raises when there is none)."""
+        k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
         b = resolve_backend(backend, k)
         key = (count, b, k.device)
         if count <= 1 or key in self._warm:

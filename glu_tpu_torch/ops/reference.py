@@ -1,10 +1,38 @@
-"""Golden reference of the sort in plain torch (counterpart of
-glu_tpu/ops/reference.py): the simplest correct expression of the contract,
-independent of the engine's code."""
+"""Golden references in plain torch (counterpart of glu_tpu/ops/reference.py):
+the simplest correct expression of each op's contract, independent of the
+kernels' code. u32 travels as int32 words, where torch's sums wrap mod 2^32
+and its order is u32 order after the sign-bit flip."""
 
 from __future__ import annotations
 
 import torch
+
+_SIGN = -(1 << 31)
+
+
+def ref_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """Reduce along axis 0 with `op` in {sum, mul, min, max} (reference
+    glu/Reduce.hpp:42-48): a scalar for (N,), the per-component (C,) for
+    (N, C)."""
+    u32 = x.dtype == torch.uint32
+    w = x.view(torch.int32) if u32 else x
+    if op in ("min", "max"):
+        w = w ^ _SIGN if u32 else w
+        r = torch.amin(w, 0) if op == "min" else torch.amax(w, 0)
+        r = r ^ _SIGN if u32 else r
+    else:
+        r = (torch.sum if op == "sum" else torch.prod)(w, 0, dtype=w.dtype)
+    return r.view(torch.uint32) if u32 else r
+
+
+def ref_exclusive_scan(x: torch.Tensor, num_partitions: int = 1) -> torch.Tensor:
+    """Exclusive prefix sum over `num_partitions` adjacent equal partitions
+    (reference glu/BlellochScan.hpp:125-138); sums wrap in the dtype."""
+    u32 = x.dtype == torch.uint32
+    w = x.view(torch.int32) if u32 else x
+    seg = w.reshape(num_partitions, -1)
+    exc = (torch.cumsum(seg, 1, dtype=w.dtype) - seg).reshape(-1)
+    return exc.view(torch.uint32) if u32 else exc
 
 
 def ref_radix_sort(keys: torch.Tensor, values: torch.Tensor, num_steps: int = 0):

@@ -5,6 +5,10 @@ numpy array (what `np.asarray(jax_array)` gives) becomes a `torch.uint32`
 tensor on the requested device and comes back as u32. The tests feed the JAX
 package and the port identical inputs through them.
 
+Where a function makes a tensor and is given no device, the tensor goes to
+the card (`default_device()`); without one it raises rather than falling
+back to the CPU. Work on the CPU is asked for with `device="cpu"`.
+
 torch implements little arithmetic for `uint32`, so every copy and fill here
 works on the tensor's int32 view (`_words`): the bits are the same.
 
@@ -20,7 +24,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .errors import check_argument
+from .errors import check_argument, check_state
+
+
+def default_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card, torch.device("cuda").
+    Raises when None is given and no CUDA device is available."""
+    if device is not None:
+        return torch.device(device)
+    check_state(
+        torch.cuda.is_available(),
+        "no CUDA device is available: pass device='cpu' to work on the CPU",
+    )
+    return torch.device("cuda")
 
 
 def _words(t: torch.Tensor) -> torch.Tensor:
@@ -33,7 +49,9 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
-    """Copy a numpy array to a new tensor on `device` (u32 stays u32)."""
+    """Copy a numpy array to a new tensor on `device`, by default the card
+    (u32 stays u32)."""
+    device = default_device(device)
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32)).to(device, copy=True).view(torch.uint32)
@@ -75,12 +93,14 @@ class DeviceBuffer:
 
     size/resize/clear/write_data/get_data mirror the SSBO surface; `data`
     exposes the current tensor for use with the functional ops. `init` may be
-    a numpy array (copied to `device`) or a tensor (kept as it is).
+    a numpy array (copied to `device`, by default the card) or a tensor (kept
+    as it is, unless `device` is given); `size=` makes zeros on `device`, by
+    default the card.
     """
 
     def __init__(self, init=None, *, size: int = 0, dtype=torch.uint32, device=None):
         if init is None:
-            self._data = _zeros((size,), dtype, device)
+            self._data = _zeros((size,), dtype, default_device(device))
         elif isinstance(init, torch.Tensor):
             self._data = init if device is None else init.to(device)
         else:

@@ -87,3 +87,10 @@ def to_torch_dtype(data_type: DataType) -> torch.dtype:
 def to_type_str(data_type: DataType) -> str:
     """Human name for a DataType (analog of to_glsl_type_str, data_types.hpp:24-44)."""
     return dtype_info(data_type).name
+
+
+def check_dtype_supported(data_type: DataType) -> DTypeInfo:
+    """Resolve a DataType (counterpart of glu_tpu/utils/dtypes.py:107-116).
+    The JAX package rejects the f64 types where x64 is off; the GPU has f64
+    ALUs, so every DataType is supported here."""
+    return dtype_info(data_type)

@@ -1,8 +1,10 @@
 """Tests that need an NVIDIA GPU (marker `cuda`): each hand-written kernel
-(glu_tpu_torch/csrc/radix_sort.cu) against its plain torch version on the
-card, bit for bit, and the whole sort against one stable torch.sort. A CUDA
-kernel has no CPU mode, so they skip where torch.cuda.is_available() is
-false. This file imports no JAX; on a GPU machine without it, run
+(glu_tpu_torch/csrc/*.cu) against its plain torch version on the card, the
+whole sort against one stable torch.sort, and the reduce and scan entry
+points against their "torch" backend. Integers bit for bit; floats at
+rtol 1e-4, atol 1e-3 (sums are taken in another order). A CUDA kernel has no
+CPU mode, so they skip where torch.cuda.is_available() is false. This file
+imports no JAX; on a GPU machine without it, run
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 """
@@ -12,6 +14,9 @@ import pytest
 import torch
 
 import glu_tpu_torch
+from glu_tpu_torch import ReduceOperator
+from glu_tpu_torch.ops import _cuda_reduce as cr
+from glu_tpu_torch.ops import _cuda_scan as csc
 from glu_tpu_torch.ops import _cuda_sort as cs
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +124,95 @@ def test_radix_sort_class_on_card(dev):
     order = np.argsort(keys[: n - 7], kind="stable")
     np.testing.assert_array_equal(kbuf.get_data(), np.r_[keys[order], keys[n - 7:]])
     np.testing.assert_array_equal(vbuf.get_data(), np.r_[order, vals[n - 7:]])
+
+
+KERNEL_DTYPES = [torch.int32, torch.uint32, torch.float32, torch.float64]
+# ragged, one tile, 100 partitions of 1000, the UVEC4 layout (4 partitions),
+# the sort's [digit][tile] table (16 x 65536)
+FOLD_SHAPES = [(1, 1), (1, 4097), (1, 100_003), (100, 1000), (4, 65_539), (16, 65_536)]
+
+
+def _fold_input(dtype, op, shape, dev) -> torch.Tensor:
+    """Seeded values that keep every prefix meaningful: odd integer factors
+    for MUL, factors near 1 for float MUL, positive float addends (no
+    cancellation), and a NaN in row 0 for float MIN/MAX."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1] + op.value)
+    n = shape[0] * shape[1]
+    if dtype.is_floating_point:
+        if op == ReduceOperator.SUM:
+            a = rng.uniform(0, 1, n)
+        elif op == ReduceOperator.MUL:
+            a = np.exp(rng.normal(0, 1e-3, n))
+        else:
+            a = rng.uniform(-1, 1, n)
+            a[shape[1] // 3] = np.nan
+        t = torch.from_numpy(a).to(dtype)
+    else:
+        a = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if op == ReduceOperator.MUL:
+            a |= 1
+        t = torch.from_numpy(a.view(np.int32))
+        t = t.view(torch.uint32) if dtype == torch.uint32 else t
+    return t.reshape(shape).to(dev)
+
+
+def _assert_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3, equal_nan=True)
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("op", list(ReduceOperator))
+def test_reduce_partitions_match_plain(dev, op, dtype, shape):
+    x = _fold_input(dtype, op, shape, dev)
+    before = cr.launch_counts()["reduce"]
+    got = cr.reduce_partitions(x, op)
+    assert cr.launch_counts()["reduce"] - before == 2
+    _assert_close(got, cr.reduce_partitions_ref(x, op))
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("op", list(ReduceOperator))
+def test_exclusive_scan_partitions_match_plain(dev, op, dtype, shape):
+    x = _fold_input(dtype, op, shape, dev)
+    before = csc.launch_counts()["exclusive_scan"]
+    got = csc.exclusive_scan_partitions(x, op)
+    assert csc.launch_counts()["exclusive_scan"] - before == (1 if shape[1] <= csc.TILE else 3)
+    _assert_close(got, csc.exclusive_scan_partitions_ref(x, op))
+
+
+@pytest.mark.parametrize("op", list(ReduceOperator))
+def test_reduce_and_scan_entry_points_match_torch(dev, op):
+    # the public entry points, "cuda" against "torch", on scalars and on
+    # the (N, 4) layout of UVEC4
+    for shape in [(1 << 20,), (100_003, 4)]:
+        x = _fold_input(torch.uint32, op, (1, int(np.prod(shape))), dev).reshape(shape)
+        _assert_close(glu_tpu_torch.reduce(x, op), glu_tpu_torch.reduce(x, op, backend="torch"))
+        for fn in (glu_tpu_torch.exclusive_scan, glu_tpu_torch.inclusive_scan):
+            _assert_close(fn(x, op=op), fn(x, op=op, backend="torch"))
+    n = 1 << 20
+    x = _fold_input(torch.uint32, op, (1, n), dev).reshape(n)
+    cuts = np.sort(np.random.default_rng(op.value).integers(0, n + 1, 999))
+    offs = torch.from_numpy(np.concatenate([[0], cuts, [n]])).to(dev)
+    _assert_close(glu_tpu_torch.segmented_reduce(x, offs, op), glu_tpu_torch.segmented_reduce(x, offs, op, backend="torch"))
+    _assert_close(glu_tpu_torch.exclusive_scan(x, op=op, offsets=offs),
+                  glu_tpu_torch.exclusive_scan(x, op=op, offsets=offs, backend="torch"))
+
+
+def test_reduce_and_scan_classes_on_default_device(dev):
+    # DeviceBuffer(numpy) goes to the card by default; the classes work in place
+    data = np.random.default_rng(5).integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    buf = glu_tpu_torch.DeviceBuffer(data)
+    assert buf.device.type == "cuda"
+    glu_tpu_torch.BlellochScan(glu_tpu_torch.DataType.UINT)(buf, 1 << 15, 2)
+    want = np.concatenate([np.cumsum(p, dtype=np.uint32) - p for p in data.reshape(2, -1)])
+    np.testing.assert_array_equal(buf.get_data(), want)
+    buf = glu_tpu_torch.DeviceBuffer(data)
+    result = glu_tpu_torch.Reduce(glu_tpu_torch.DataType.UINT, ReduceOperator.MAX)(buf, 1000)
+    assert int(result) == int(data[:1000].max()) == int(buf.get_data()[0])
+    np.testing.assert_array_equal(buf.get_data()[1:], data[1:])

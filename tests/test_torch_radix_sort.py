@@ -65,7 +65,7 @@ def test_sort_matches_jax_and_oracle(case, backend, seeded_rng):
     vals = np.arange(keys.size, dtype=np.uint32)
     jk, jv = glu_tpu.radix_sort(jnp.asarray(keys), jnp.asarray(vals), steps, backend="xla")
     ok, ov = get_oracle().radix_sort_kv(keys, vals, steps or 8)
-    tkeys, tvals = from_numpy(keys), from_numpy(vals)
+    tkeys, tvals = from_numpy(keys, "cpu"), from_numpy(vals, "cpu")
     tk, tv = glu_tpu_torch.radix_sort(tkeys, tvals, steps, backend=backend)
     assert tk.dtype == tv.dtype == torch.uint32
     tk, tv = to_numpy(tk), to_numpy(tv)
@@ -88,7 +88,7 @@ def test_sort_tiny_counts(backend):
         keys = np.arange(5, 5 + n, dtype=np.uint32)
         vals = np.arange(9, 9 + n, dtype=np.uint32)
         jk, jv = glu_tpu.radix_sort(jnp.asarray(keys), jnp.asarray(vals), backend="xla")
-        tk, tv = glu_tpu_torch.radix_sort(from_numpy(keys), from_numpy(vals), backend=backend)
+        tk, tv = glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(vals, "cpu"), backend=backend)
         assert tk.shape == (n,) and tk.dtype == torch.uint32
         np.testing.assert_array_equal(to_numpy(tk), np.asarray(jk))
         np.testing.assert_array_equal(to_numpy(tv), np.asarray(jv))
@@ -109,7 +109,7 @@ def test_engine_takes_each_kernel(n, steps, calls, seeded_rng, monkeypatch):
             return _fn(*args)
         monkeypatch.setattr(cs, name, spy)
     keys = seeded_rng(5).sample_int_vector(n, 0, 0xFFFFFFFF)
-    glu_tpu_torch.radix_sort(from_numpy(keys), from_numpy(np.arange(n, dtype=np.uint32)), steps)
+    glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(np.arange(n, dtype=np.uint32), "cpu"), steps)
     assert (seen["group_tiles"], seen["scatter_runs"], seen["sort_single_tile"]) == calls
 
 
@@ -121,7 +121,7 @@ def test_sort_class_in_place(backend, seeded_rng):
     vals = np.arange(3000, dtype=np.uint32)
     jkb, jvb = glu_tpu.DeviceBuffer(keys), glu_tpu.DeviceBuffer(vals)
     glu_tpu.RadixSort()(jkb, jvb, 3000, backend="xla")
-    kbuf, vbuf = DeviceBuffer(keys), DeviceBuffer(vals)
+    kbuf, vbuf = DeviceBuffer(keys, device="cpu"), DeviceBuffer(vals, device="cpu")
     sorter = RadixSort()
     sorter.prepare_internal_buffers(3000, backend=backend, device="cpu")
     out_k, out_v = sorter(kbuf, vbuf, 3000, backend=backend)
@@ -137,12 +137,12 @@ def test_sort_class_count_subset(backend, seeded_rng):
     vals = np.arange(100, dtype=np.uint32)
     jkb, jvb = glu_tpu.DeviceBuffer(keys), glu_tpu.DeviceBuffer(vals)
     glu_tpu.RadixSort()(jkb, jvb, 60, backend="xla")
-    kbuf, vbuf = DeviceBuffer(keys), DeviceBuffer(vals)
+    kbuf, vbuf = DeviceBuffer(keys, device="cpu"), DeviceBuffer(vals, device="cpu")
     RadixSort()(kbuf, vbuf, 60, backend=backend)
     np.testing.assert_array_equal(kbuf.get_data(), jkb.get_data())
     np.testing.assert_array_equal(vbuf.get_data(), jvb.get_data())
     # tensors in, new tensors out; the caller's tensors stay as they were
-    tkeys, tvals = from_numpy(keys), from_numpy(vals)
+    tkeys, tvals = from_numpy(keys, "cpu"), from_numpy(vals, "cpu")
     out_k, out_v = RadixSort()(tkeys, tvals, 60, backend=backend)
     np.testing.assert_array_equal(to_numpy(out_k), jkb.get_data()[:60])
     np.testing.assert_array_equal(to_numpy(out_v), jvb.get_data()[:60])
@@ -164,12 +164,12 @@ def test_sort_rejects_what_jax_rejects():
         with pytest.raises(JaxArgumentError):
             glu_tpu.radix_sort(jnp.asarray(keys), jnp.asarray(vals), backend="xla")
         with pytest.raises(GluArgumentError):
-            glu_tpu_torch.radix_sort(from_numpy(keys), from_numpy(vals))
+            glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(vals, "cpu"))
     for steps in (-1, 9):
         with pytest.raises(GluArgumentError):
-            glu_tpu_torch.radix_sort(from_numpy(k), from_numpy(k), steps)
+            glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), steps)
     with pytest.raises(GluError):
-        glu_tpu_torch.radix_sort(from_numpy(k), from_numpy(k), backend="xla")
+        glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), backend="xla")
     for kwargs in ({"descending": True}, {"bits": "auto"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            glu_tpu_torch.radix_sort(from_numpy(k), from_numpy(k), **kwargs)
+            glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), **kwargs)

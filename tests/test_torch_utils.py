@@ -85,7 +85,7 @@ def test_device_buffer_parity():
     # surface of reference ShaderStorageBuffer (gl_utils.hpp:146-246): the
     # same calls on both packages' buffers leave the same contents
     jbuf = jutils.DeviceBuffer(size=8)
-    tbuf = DeviceBuffer(size=8)
+    tbuf = DeviceBuffer(size=8, device="cpu")
     assert tbuf.dtype == torch.uint32 and tbuf.size == jbuf.size == 8
     steps = [
         lambda b: b.write_data(np.arange(8, dtype=np.uint32) + 0xFFFFFFF0),
@@ -112,7 +112,7 @@ def test_copy_buffer_parity():
     src = np.arange(5, dtype=np.uint32) + 0x80000000
     for size in (None, 3, 5, 7):
         want = np.asarray(jutils.copy_buffer(jnp.asarray(src), size))
-        t = from_numpy(src)
+        t = from_numpy(src, "cpu")
         got = copy_buffer(t, size)
         np.testing.assert_array_equal(to_numpy(got), want)
         assert got.data_ptr() != t.data_ptr()
@@ -130,9 +130,39 @@ def test_timing_cpu():
 
 def test_import_has_no_jax():
     # a fresh interpreter: this test process has already imported jax
-    code = "import sys, glu_tpu_torch, glu_tpu_torch.ops._cuda_sort; sys.exit('jax' in sys.modules)"
+    code = (
+        "import sys, glu_tpu_torch, glu_tpu_torch.ops._cuda_sort, glu_tpu_torch.ops._cuda_scan,"
+        " glu_tpu_torch.ops._cuda_reduce; sys.exit('jax' in sys.modules or 'glu_tpu' in sys.modules)"
+    )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_default_device_is_the_card():
+    # a tensor made without a device goes to the card, and without a card
+    # the call raises: it never falls back to the CPU
+    a = np.arange(4, dtype=np.uint32)
+    calls = [
+        lambda: from_numpy(a),
+        lambda: DeviceBuffer(a).data,
+        lambda: DeviceBuffer(size=4).data,
+        lambda: tutils.default_device(),
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            got = call()
+            assert (got.type if isinstance(got, torch.device) else got.device.type) == "cuda"
+        else:
+            with pytest.raises(tutils.GluError, match="no CUDA device"):
+                call()
+    if not torch.cuda.is_available():
+        from glu_tpu_torch import RadixSort
+
+        with pytest.raises(tutils.GluError, match="no CUDA device"):
+            RadixSort().prepare_internal_buffers(16)
+    # a tensor given to DeviceBuffer keeps its device; "cpu" is asked for
+    assert DeviceBuffer(torch.zeros(3, dtype=torch.int32)).device.type == "cpu"
+    assert tutils.default_device("cpu") == torch.device("cpu")
 
 
 def test_debug_printers_parity():
@@ -148,7 +178,7 @@ def test_debug_printers_parity():
         for count in (None, 2):
             jout, tout = io.StringIO(), io.StringIO()
             getattr(jdebug, printer)(jnp.asarray(data), count, name="k", file=jout)
-            getattr(tdebug, printer)(DeviceBuffer(data), count, name="k", file=tout)
+            getattr(tdebug, printer)(DeviceBuffer(data, device="cpu"), count, name="k", file=tout)
             assert tout.getvalue() == jout.getvalue()
 
 
