@@ -8,15 +8,17 @@ Phases, each of which raises (exit code 1) on any failure:
      limit and the torch/CUDA versions;
   2. build: compiles glu_tpu_torch/csrc/*.cu with nvcc for sm_90a, one nvcc
      per source, all at once;
-  3. each sort kernel (group_tiles, scatter_runs, sort_single_tile) against
-     its plain torch version on the card, bit for bit, at the main path's
-     shape and at small ragged shapes;
+  3. each sort kernel (digit_histograms, onesweep_pass, sort_single_tile)
+     against its plain torch version on the card, bit for bit, at the main
+     path's shape and at small ragged shapes: uniform, constant and 3-valued
+     keys, 8-bit, 1-bit, top-byte and non-contiguous digits, 0, 1 and 7
+     payloads;
   4. the sort's main path: glu_tpu_torch.radix_sort on 2**28 u32 key/value
      pairs and on smaller and edge-case inputs, bit for bit against
      radix_sort(..., backend="torch") (one stable torch.sort) on the card;
-  5. launch counts of the sort: the 2**28 sort ran group_tiles and
-     scatter_runs 8 times each and sort_single_tile never; the small sort
-     ran sort_single_tile;
+  5. launch counts of the sort: the 2**28 sort ran digit_histograms once,
+     onesweep_pass 4 times and sort_single_tile never; num_steps=3 (12
+     bits) 1 and 2 times; the small sort ran sort_single_tile alone;
   6. the scan and reduce kernels (exclusive_scan K4, reduce K5) against
      their plain torch versions on the card, for sum, mul, min and max on
      int32, uint32, float32 and float64, at ragged, partitioned, vector and
@@ -29,7 +31,8 @@ Phases, each of which raises (exit code 1) on any failure:
      device, each against backend="torch" or an exact reference; the launch
      counts, set to 0 before and read after, match the design (K4 3
      launches per multi-tile scan, K5 2 per reduce);
-  8. timings (CUDA events, medians), for the record only.
+  8. timings (CUDA events, medians), for the record only, and a per-launch
+     profile (torch.profiler) of one 2**28 sort, scan and reduce.
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's line, and the one before that the JSON summary of the kernels.
 """
@@ -154,7 +157,7 @@ def main() -> int:
             return torch.arange(n, dtype=torch.int32, device=dev).flip(0)
         raise ValueError(kind_)
 
-    max_err = {"group_tiles": 0, "scatter_runs": 0, "sort_single_tile": 0}
+    max_err = {"digit_histograms": 0, "onesweep_pass": 0, "sort_single_tile": 0}
 
     def check_same(name: str, label: str, got, want) -> None:
         err = 0
@@ -170,22 +173,27 @@ def main() -> int:
     # -- 3. each kernel against its plain version -----------------------------
     t0 = time.perf_counter()
     n_small = 3 * cs.TILE + 777  # three full tiles and a ragged tail
-    k1k2_cases = [(n_small, kd, pos, ns) for kd in ("uniform", "constant", "mod3")
-                  for pos in ((0, 1, 2, 3), (8,), (26, 27, 28, 29, 30, 31)) for ns in (0, 1)]
-    k1k2_cases.append((MAIN_N, "uniform", (0, 1, 2, 3), 1))  # the main path's pass
-    for n, kd, pos, ns in k1k2_cases:
+    scattered = (30, 3, 17, 9, 0, 22, 5, 12)
+    pass_cases = [(n_small, kd, pos, ns) for kd in ("uniform", "constant", "mod3")
+                  for pos in (tuple(range(8)), (8,), tuple(range(24, 32)), scattered) for ns in (0, 1, 7)]
+    pass_cases.append((MAIN_N, "uniform", tuple(range(8)), 1))  # the main path's first pass
+    for n, kd, pos, ns in pass_cases:
         label = f"n={n} keys={kd} bits={pos} payloads={ns}"
         keys = words(n, kd)
-        pays = [torch.arange(n, dtype=torch.int32, device=dev)][:ns]
-        gk, gp, counts = cs.group_tiles(keys, pays, pos)
-        rk, rp, rc = cs.group_tiles_ref(keys, pays, pos)
-        check_same("group_tiles", label, [gk, *gp, counts], [rk, *rp, rc])
-        del rk, rp, rc
-        offsets = cs.run_offsets(counts)
-        sk, sp = cs.scatter_runs(gk, gp, counts, offsets, pos)
-        rk, rp = cs.scatter_runs_ref(gk, gp, counts, offsets, pos)
-        check_same("scatter_runs", label, [sk, *sp], [rk, *rp])
-        del keys, pays, gk, gp, counts, offsets, sk, sp, rk, rp
+        pays = [torch.arange(n, dtype=torch.int32, device=dev)] + [words(n, "uniform") for _ in range(ns - 1)]
+        pays = pays[:ns]
+        hist = cs.digit_histograms(keys, [pos])
+        check_same("digit_histograms", label, [hist], [cs.digit_histograms_ref(keys, [pos])])
+        base = (torch.cumsum(hist, 1, dtype=torch.int32) - hist)[0, : 1 << len(pos)]
+        got_k, got_p = cs.onesweep_pass(keys, pays, pos, base)
+        want_k, want_p = cs.onesweep_pass_ref(keys, pays, pos, base)
+        check_same("onesweep_pass", label, [got_k, *got_p], [want_k, *want_p])
+        del keys, pays, hist, base, got_k, got_p, want_k, want_p
+    hist_groups = [tuple(range(0, 8)), tuple(range(8, 16)), tuple(range(16, 24)), tuple(range(24, 32))]
+    keys = words(MAIN_N, "uniform")  # the main path's histograms: every pass at once
+    check_same("digit_histograms", "n=2^28 4 passes", [cs.digit_histograms(keys, hist_groups)],
+               [cs.digit_histograms_ref(keys, hist_groups)])
+    del keys
     k3_cases = 0
     for n in (1, 2, 1000, 10000, cs.SINGLE_TILE_MAX):
         for kd in ("uniform", "constant", "mod3"):
@@ -200,7 +208,7 @@ def main() -> int:
                     k3_cases += 1
     torch.cuda.synchronize()
     print(f"kernels vs plain versions: bit-identical, max_abs_err {max_err} "
-          f"({len(k1k2_cases)} K1/K2 cases, {k3_cases} K3 cases, {time.perf_counter() - t0:.1f} s)")
+          f"({len(pass_cases)} histogram/onesweep cases, {k3_cases} K3 cases, {time.perf_counter() - t0:.1f} s)")
 
     # -- 4. the main path, bit for bit against torch.sort -----------------------
     def as_u32(w: torch.Tensor) -> torch.Tensor:
@@ -252,13 +260,12 @@ def main() -> int:
     launches = cs.launch_counts()
 
     # -- 5. launch counts -----------------------------------------------------
-    big = per_case["2^28 uniform"]
-    if big != {"group_tiles": 8, "scatter_runs": 8, "sort_single_tile": 0}:
-        raise AssertionError(f"2^28 sort launched {big}, want 8/8/0")
-    if per_case["10000 uniform (single tile)"] != {"group_tiles": 0, "scatter_runs": 0, "sort_single_tile": 1}:
-        raise AssertionError(f"single-tile sort launched {per_case['10000 uniform (single tile)']}")
-    if per_case["2^24 uniform num_steps=3"]["group_tiles"] != 3:
-        raise AssertionError("num_steps=3 did not run 3 passes")
+    want_launches = {"2^28 uniform": (1, 4, 0), "2^24 uniform num_steps=3": (1, 2, 0),
+                     "10000 uniform (single tile)": (0, 0, 1)}
+    for label, want in want_launches.items():
+        got = tuple(per_case[label][k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile"))
+        if got != want:
+            raise AssertionError(f"{label} launched digit_histograms/onesweep_pass/sort_single_tile {got}, want {want}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     print(f"launch counts over the main path: {launches}")
@@ -438,18 +445,19 @@ def main() -> int:
                               lambda: glu_tpu_torch.radix_sort(keys, values, backend="torch"))
     print(f"time radix_sort 2^28 pairs: port {sort_ms:.3f} ms = {MAIN_N / sort_ms / 1e3:.2f} M pairs/s; "
           f"torch.sort(stable)+gather {torch_ms:.3f} ms = {MAIN_N / torch_ms / 1e3:.2f} M pairs/s {tag}")
+    for line in _profile_kernels(torch, lambda: glu_tpu_torch.radix_sort(keys, values)):
+        print(f"profile radix_sort (2^28 pairs): {line} {tag}")
     kw, vw = keys.view(torch.int32), values.view(torch.int32)
     del keys, values
-    pos = (0, 1, 2, 3)
-    gk, gp, counts = cs.group_tiles(kw, [vw], pos)
-    offsets = cs.run_offsets(counts)
+    pos = tuple(range(8))
+    hist = cs.digit_histograms(kw, hist_groups)
+    base = (torch.cumsum(hist, 1, dtype=torch.int32) - hist)[0]
     timing = {}
-    timing["group_tiles"] = turns(lambda: cs.group_tiles(kw, [vw], pos),
-                                  lambda: cs.group_tiles_ref(kw, [vw], pos))
-    timing["scatter_runs"] = turns(lambda: cs.scatter_runs(gk, gp, counts, offsets, pos),
-                                   lambda: cs.scatter_runs_ref(gk, gp, counts, offsets, pos))
-    glue_ms = median_ms(lambda: cs.run_offsets(counts))
-    del gk, gp, counts, offsets, kw, vw
+    timing["digit_histograms"] = turns(lambda: cs.digit_histograms(kw, hist_groups),
+                                       lambda: cs.digit_histograms_ref(kw, hist_groups))
+    timing["onesweep_pass"] = turns(lambda: cs.onesweep_pass(kw, [vw], pos, base),
+                                    lambda: cs.onesweep_pass_ref(kw, [vw], pos, base))
+    del hist, base, kw, vw
     sk = words(cs.SINGLE_TILE_MAX, "uniform")
     sv = torch.arange(cs.SINGLE_TILE_MAX, dtype=torch.int32, device=dev)
     full = tuple(range(32))
@@ -460,21 +468,23 @@ def main() -> int:
         r = torch.sort(sk, stable=True)
         return r.values, sv[r.indices]
 
-    library = {"group_tiles": None, "scatter_runs": None, "sort_single_tile": median_ms(sort_and_gather, reps=20)}
+    library = {"digit_histograms": None, "onesweep_pass": None,
+               "sort_single_tile": median_ms(sort_and_gather, reps=20)}
     pair_bytes = MAIN_N * 2 * 4
-    counts_bytes = (MAIN_N // cs.TILE) * 16 * 4
+    # the look-back's status words: zeroed, then written once by their tile
+    status_bytes = 2 * (MAIN_N // cs.TILE) * cs.BINS * 8
     bounds = {
-        "group_tiles": _bound(2 * pair_bytes + counts_bytes, MAIN_N),
-        "scatter_runs": _bound(2 * pair_bytes + 2 * counts_bytes, MAIN_N),
+        "digit_histograms": _bound(MAIN_N * 4 + len(hist_groups) * cs.BINS * 4, len(hist_groups) * MAIN_N),
+        "onesweep_pass": _bound(2 * pair_bytes + status_bytes + cs.BINS * 4, MAIN_N),
         "sort_single_tile": _bound(2 * cs.SINGLE_TILE_MAX * 2 * 4, 8 * cs.SINGLE_TILE_MAX),
     }
     del sk, sv
+    shapes = {"digit_histograms": "2^28 keys, 4 passes of 8 bits", "onesweep_pass": "2^28 pairs, one 8-bit pass",
+              "sort_single_tile": f"{cs.SINGLE_TILE_MAX} pairs, 32 bits"}
     for name, (k_ms, p_ms) in timing.items():
-        shape = "2^28 pairs, one 4-bit pass" if name != "sort_single_tile" else f"{cs.SINGLE_TILE_MAX} pairs, 32 bits"
         lib_text = "" if library[name] is None else f", torch.sort(stable)+gather {library[name]:.4f} ms"
-        print(f"time {name} ({shape}): kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms{lib_text}, "
+        print(f"time {name} ({shapes[name]}): kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms{lib_text}, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) {tag}")
-    print(f"time run_offsets glue (2^28 pairs, one pass): {glue_ms:.3f} ms {tag}")
 
     u = as_u32(words(MAIN_N, "uniform"))
     u2, w32 = u.view(1, MAIN_N), u.view(torch.int32)
@@ -504,8 +514,8 @@ def main() -> int:
     del u, u2, w32
 
     kernels = {  # name: (source, TPU kernel it replaces)
-        "group_tiles": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:256"),
-        "scatter_runs": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:542"),
+        "digit_histograms": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:256"),
+        "onesweep_pass": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:542"),
         "sort_single_tile": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:653"),
         "exclusive_scan": ("glu_tpu_torch/csrc/scan.cu", "glu_tpu/ops/_pallas_scan.py:201"),
         "reduce": ("glu_tpu_torch/csrc/reduce.cu", "glu_tpu/ops/_pallas_reduce.py:110"),

@@ -109,20 +109,22 @@ def load_library() -> ctypes.CDLL:
     so, _, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_fold_tile"):
+    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_sort_bins",
+                 "glu_fold_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
     lib.glu_error_string.restype = ctypes.c_char_p
+    # (keys, n, bit positions, bits per pass, passes, hist, stream)
+    lib.glu_digit_histograms.argtypes = [ptr, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, count, ..., stream)
-    lib.glu_group_tiles.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr]
-    lib.glu_scatter_runs.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
+    lib.glu_onesweep_pass.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr]
     # (input, parts, len, ctas, dtype, op, output, stream)
     lib.glu_reduce_pass.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, ptr, ptr]
     # (input, output, parts, len, dtype, op, carries or None, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
-    for name in ("glu_group_tiles", "glu_scatter_runs", "glu_sort_single_tile", "glu_reduce_pass",
+    for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_sort_single_tile", "glu_reduce_pass",
                  "glu_scan_pass"):
         getattr(lib, name).restype = c_int
     _lib = lib

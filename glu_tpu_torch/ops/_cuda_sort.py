@@ -2,22 +2,23 @@
 
 Counterpart of glu_tpu/ops/_pallas_sort.py with the same contract: a stable
 LSD radix sort of u32 keys carrying a LIST of u32 payload streams, over the
-key bit positions given LSB-first, grouped into passes of 4 bits (one pass of
-5-6 bits when that is all there is). Words travel as int32 bit patterns; the
-kernels read them as uint32_t.
+key bit positions given LSB-first, grouped into passes of up to 8 bits. Words
+travel as int32 bit patterns; the kernels read them as uint32_t.
 
 The TPU engine needed 1-bit splits, lane gathers and a DMA splicer because
 the TPU has no atomics and no scatter. The GPU has both, so each kernel is
 written anew from what it computes (csrc/radix_sort.cu):
 
-  PASS over bits g:
-    K1 `group_tiles` -- one CTA per tile of TILE elements groups the tile
-        stably by the digit of bits g, for every stream, and writes the
-        tile's row of the [tile][bin] counts.
-    glue -- exclusive cumsums over that table in plain torch give each
-        (digit, tile) run its global start (`run_offsets`).
-    K2 `scatter_runs` -- one CTA per tile moves every run of every stream
-        to its global place.
+  ONCE per sort:
+    `digit_histograms` -- one read of the keys counts the digit of every
+        pass; an exclusive cumsum of each pass's counts (plain torch) gives
+        each digit's global start.
+  PASS over bits g (LSB-first, up to 8 bits, 256 bins):
+    `onesweep_pass` -- one CTA per tile of TILE elements ranks the tile
+        stably by the digit of bits g, finds how many equal digits the
+        earlier tiles hold by a decoupled look-back over their published
+        counts, and writes every stream to its final place: each word is
+        read once and written once (K1 + glue + K2 of the TPU engine, fused).
   An input of at most SINGLE_TILE_MAX elements instead takes
     K3 `sort_single_tile` -- one CTA runs every pass in shared memory.
 
@@ -25,7 +26,9 @@ Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
 and a plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises.
+kernel or raises. The plain version of a onesweep pass is built from the
+stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
+`scatter_runs_ref`), which the tests hold against the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -38,32 +41,35 @@ from ..utils.errors import check_argument
 from ..utils.log import vlog
 from ._common import cdiv, kernels, launch, on_cuda
 
-FIELD_BITS = 4          # bits per pass: one reference-visible 4-bit digit
-MAX_FIELD_BITS = 6      # widest pass K1/K2 take (64 bins)
+FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
+MAX_FIELD_BITS = 8      # widest onesweep pass (BINS bins)
+BINS = 1 << MAX_FIELD_BITS
+MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
 
 # Kernel geometry, fixed at compile time in csrc/radix_sort.cu (kTile,
-# kSingleMax, kMaxStreams); the library is checked against it when loaded.
-# The plain versions read these at call time, so the CPU tests shrink them
-# to reach many tiles, ragged tails and the single-tile path at tiny n.
-TILE = 4096
+# kSingleMax, kMaxStreams, kMaxBins); the library is checked against it when
+# loaded. The plain versions read TILE and SINGLE_TILE_MAX at call time, so
+# the CPU tests shrink them to reach many tiles, ragged tails and the
+# single-tile path at tiny n.
+TILE = 6144
 SINGLE_TILE_MAX = 16384
 MAX_STREAMS = 8
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
-group_tiles_launches = 0
-scatter_runs_launches = 0
+digit_histograms_launches = 0
+onesweep_pass_launches = 0
 sort_single_tile_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global group_tiles_launches, scatter_runs_launches, sort_single_tile_launches
-    group_tiles_launches = scatter_runs_launches = sort_single_tile_launches = 0
+    global digit_histograms_launches, onesweep_pass_launches, sort_single_tile_launches
+    digit_histograms_launches = onesweep_pass_launches = sort_single_tile_launches = 0
 
 
 def launch_counts() -> dict:
     return {
-        "group_tiles": group_tiles_launches,
-        "scatter_runs": scatter_runs_launches,
+        "digit_histograms": digit_histograms_launches,
+        "onesweep_pass": onesweep_pass_launches,
         "sort_single_tile": sort_single_tile_launches,
     }
 
@@ -98,19 +104,13 @@ def _check_positions(positions, max_count: int) -> tuple:
     return positions
 
 
-def _check_table(t: torch.Tensor, name: str, keys: torch.Tensor, nbits: int) -> None:
-    shape = (cdiv(keys.numel(), TILE), 1 << nbits)
-    check_argument(t.dtype == torch.int32 and t.is_contiguous(), "%s must be contiguous int32", name)
-    check_argument(tuple(t.shape) == shape, "%s must have shape %s, got %s", name, shape, tuple(t.shape))
-    check_argument(t.device == keys.device, "%s is on %s, keys on %s", name, t.device, keys.device)
-
-
 def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS)
+    lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS,
+                  sort_bins=BINS)
     launch(lib, fn_name, device, *args)
 
 
@@ -127,13 +127,45 @@ def _digits(words: torch.Tensor, positions) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K1: group_tiles
+# digit_histograms
+# ---------------------------------------------------------------------------
+
+
+def digit_histograms_ref(keys: torch.Tensor, groups) -> torch.Tensor:
+    """Plain version of digit_histograms: one bincount per pass."""
+    rows = [torch.bincount(_digits(keys, g), minlength=BINS) for g in groups]
+    return torch.stack(rows).to(torch.int32)
+
+
+def digit_histograms(keys: torch.Tensor, groups) -> torch.Tensor:
+    """The counts half of K1 (_pallas_sort.py::_counts_row), for every pass
+    of a sort in one read of the keys: hist[p][d] (int32, shape (len(groups),
+    BINS)) is the number of keys whose digit of the bits groups[p] (1-8 of
+    them, LSB-first) is d."""
+    global digit_histograms_launches
+    _check_streams(keys, [])
+    groups = [_check_positions(g, MAX_FIELD_BITS) for g in groups]
+    check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
+    if not on_cuda(keys):
+        return digit_histograms_ref(keys, groups)
+    hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
+    _launch(
+        "glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(),
+        _ints([b for g in groups for b in g]), _ints([len(g) for g in groups]), len(groups), hist.data_ptr(),
+    )
+    digit_histograms_launches += 1
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# onesweep_pass and the stages of its plain version
 # ---------------------------------------------------------------------------
 
 
 def group_tiles_ref(keys: torch.Tensor, payloads, positions):
-    """Plain version of K1: per tile, a stable sort on the digit, a gather,
-    and the digit histogram."""
+    """Stage 1 of a pass (what _pallas_sort.py::_group_pass computes): per
+    tile, a stable sort on the digit, a gather, and the digit histogram.
+    Returns (grouped keys, grouped payloads, counts[tile][digit] int32)."""
     n = keys.numel()
     bins = 1 << len(positions)
     tile = torch.arange(n, device=keys.device) // TILE
@@ -143,53 +175,23 @@ def group_tiles_ref(keys: torch.Tensor, payloads, positions):
     return keys[order], [v[order] for v in payloads], counts.to(torch.int32)
 
 
-def group_tiles(keys: torch.Tensor, payloads, positions):
-    """K1 (replaces _pallas_sort.py::_group_pass): group every tile of TILE
-    elements stably by the digit of the key bits at `positions` (1-6 of
-    them), moving the payload streams alike. Returns (grouped keys, list of
-    grouped payloads, counts) with counts[tile][digit] int32."""
-    global group_tiles_launches
-    streams = _check_streams(keys, payloads)
-    positions = _check_positions(positions, MAX_FIELD_BITS)
-    if not on_cuda(keys):
-        return group_tiles_ref(keys, list(payloads), positions)
-    n = keys.numel()
-    outs = [torch.empty_like(s) for s in streams]
-    counts = torch.empty((cdiv(n, TILE), 1 << len(positions)), dtype=torch.int32, device=keys.device)
-    _launch(
-        "glu_group_tiles", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
-        _ints(positions), len(positions), counts.data_ptr(),
-    )
-    group_tiles_launches += 1
-    return outs[0], outs[1:], counts
-
-
-# ---------------------------------------------------------------------------
-# glue: global start of every run
-# ---------------------------------------------------------------------------
-
-
 def run_offsets(counts: torch.Tensor) -> torch.Tensor:
-    """offsets[tile][d]: where tile's run of digit d starts in the pass's
-    output, i.e. the digit's base plus the same digit's counts in earlier
-    tiles. That is one exclusive cumsum over the table in [digit][tile]
-    order, the order of the runs in the output (the reference's scan of
-    [digit][block], RadixSort.hpp:311; the run placement of
-    _pallas_sort.py::_run_descriptors). Empty runs need no compaction here,
-    since CTAs do not run in order."""
+    """Stage 2: offsets[tile][d], where tile's run of digit d starts in the
+    pass's output, i.e. the digit's base plus the same digit's counts in
+    earlier tiles. That is one exclusive cumsum over the table in
+    [digit][tile] order, the order of the runs in the output (the
+    reference's scan of [digit][block], RadixSort.hpp:311; the run placement
+    of _pallas_sort.py::_run_descriptors)."""
     tiles, bins = counts.shape
     by_digit = counts.t().reshape(-1)
     starts = torch.cumsum(by_digit, 0, dtype=torch.int32) - by_digit
     return starts.view(bins, tiles).t().contiguous()
 
 
-# ---------------------------------------------------------------------------
-# K2: scatter_runs
-# ---------------------------------------------------------------------------
-
-
 def scatter_runs_ref(keys: torch.Tensor, payloads, counts: torch.Tensor, offsets: torch.Tensor, positions):
-    """Plain version of K2: computed destinations and an index write."""
+    """Stage 3 (what _pallas_sort.py::_splice_streams computes): every
+    (digit, tile) run of stage 1's output, in every stream, goes to
+    offsets[tile][digit]. Returns (keys, list of payloads)."""
     i = torch.arange(keys.numel(), device=keys.device)
     tile = i // TILE
     d = _digits(keys, positions)
@@ -203,23 +205,45 @@ def scatter_runs_ref(keys: torch.Tensor, payloads, counts: torch.Tensor, offsets
     return outs[0], outs[1:]
 
 
-def scatter_runs(keys: torch.Tensor, payloads, counts: torch.Tensor, offsets: torch.Tensor, positions):
-    """K2 (replaces _pallas_sort.py::_splice_streams): move every (digit,
-    tile) run of K1's output, in every stream, to offsets[tile][digit].
-    Returns (keys, list of payloads) of the finished pass."""
-    global scatter_runs_launches
+def onesweep_pass_ref(keys: torch.Tensor, payloads, positions, digit_base: torch.Tensor):
+    """Plain version of onesweep_pass, with the kernel's tiling and offset
+    arithmetic: each tile grouped stably by digit; the place of its run of
+    digit d is digit_base[d] plus d's counts in earlier tiles (what the
+    look-back sums: run_offsets less its first row); then the scatter."""
+    gk, gp, counts = group_tiles_ref(keys, payloads, positions)
+    offsets = run_offsets(counts)
+    offsets += digit_base - offsets[0]
+    return scatter_runs_ref(gk, gp, counts, offsets, positions)
+
+
+def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Tensor):
+    """K1 + K2 fused (replaces _pallas_sort.py::_group_pass, _run_descriptors
+    and _splice_streams): one stable pass by the digit of the key bits at
+    `positions` (1-8 of them, LSB-first), moving every payload stream alike.
+    digit_base (int32, 2**len(positions)) is where each digit starts in the
+    output: an exclusive cumsum of digit_histograms' row for this pass.
+    Returns (keys, list of payloads)."""
+    global onesweep_pass_launches
     streams = _check_streams(keys, payloads)
     positions = _check_positions(positions, MAX_FIELD_BITS)
-    _check_table(counts, "counts", keys, len(positions))
-    _check_table(offsets, "offsets", keys, len(positions))
-    if not on_cuda(keys):
-        return scatter_runs_ref(keys, list(payloads), counts, offsets, positions)
-    outs = [torch.empty_like(s) for s in streams]
-    _launch(
-        "glu_scatter_runs", keys.device, _pointers(streams), _pointers(outs), len(streams),
-        keys.numel(), _ints(positions), len(positions), counts.data_ptr(), offsets.data_ptr(),
+    shape = (1 << len(positions),)
+    check_argument(
+        digit_base.dtype == torch.int32 and digit_base.is_contiguous() and tuple(digit_base.shape) == shape,
+        "digit_base must be contiguous int32 of shape %s, got %s %s", shape, digit_base.dtype,
+        tuple(digit_base.shape),
     )
-    scatter_runs_launches += 1
+    check_argument(digit_base.device == keys.device, "digit_base is on %s, keys on %s", digit_base.device, keys.device)
+    if not on_cuda(keys):
+        return onesweep_pass_ref(keys, list(payloads), positions, digit_base)
+    n = keys.numel()
+    outs = [torch.empty_like(s) for s in streams]
+    # a status word per (tile, bin), then the tile counter: zero at launch
+    status = torch.zeros(cdiv(n, TILE) * BINS + 1, dtype=torch.int64, device=keys.device)
+    _launch(
+        "glu_onesweep_pass", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
+        _ints(positions), len(positions), digit_base.data_ptr(), status.data_ptr(),
+    )
+    onesweep_pass_launches += 1
     return outs[0], outs[1:]
 
 
@@ -262,11 +286,10 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions):
 
 
 def _pass_groups(positions: tuple) -> list:
-    """4-bit passes, LSB-first; 5-6 bits in all take one wide pass (one
-    scatter instead of two), as the JAX engine groups them."""
-    if FIELD_BITS < len(positions) <= MAX_FIELD_BITS:
-        return [positions]
-    return [positions[i : i + FIELD_BITS] for i in range(0, len(positions), FIELD_BITS)]
+    """Passes of up to 8 bits, LSB-first: a full 32-bit sort is 4 passes,
+    num_steps=3 (12 bits) 8 + 4. A stable LSD sort over the same positions
+    gives the same permutation however they are grouped."""
+    return [positions[i : i + MAX_FIELD_BITS] for i in range(0, len(positions), MAX_FIELD_BITS)]
 
 
 def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positions=None):
@@ -277,7 +300,10 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     The inputs are never modified.
 
     bit_positions (optional, LSB-first) restricts the sort to those key
-    bits; None means bits 0..4*num_steps-1 (the reference contract)."""
+    bits; None means bits 0..4*num_steps-1 (the reference contract).
+
+    Up to SINGLE_TILE_MAX elements take K3 alone; larger inputs take one
+    digit_histograms launch and one onesweep_pass per group of 8 bits."""
     payloads = list(payloads)
     if bit_positions is None:
         positions = tuple(range(num_steps * FIELD_BITS))
@@ -294,8 +320,9 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
         "radix_sort n=%d: tiles=%d streams=%d passes=%d",
         n, cdiv(n, TILE), 1 + len(payloads), len(groups),
     )
-    for g in groups:
+    hist = digit_histograms(keys, groups)
+    bases = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+    for g, base in zip(groups, bases):
         # rebinding at once frees each pass's input as soon as it is consumed
-        keys, payloads, counts = group_tiles(keys, payloads, g)
-        keys, payloads = scatter_runs(keys, payloads, counts, run_offsets(counts), g)
+        keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
     return keys, payloads

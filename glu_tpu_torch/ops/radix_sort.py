@@ -1,11 +1,12 @@
-"""Stable LSD radix sort of u32 key / u32 value pairs (4-bit digits, 8 passes).
+"""Stable LSD radix sort of u32 key / u32 value pairs (the reference's 4-bit
+digits, 8 steps).
 
 Counterpart of glu_tpu/ops/radix_sort.py (reference glu/RadixSort.hpp:186-354)
 for PyTorch on the GPU. Two backends:
-  - "cuda", the radix engine of ops/_cuda_sort.py: per 4-bit pass a tile
-    grouping kernel, a cumsum glue and a run scatter kernel, or one
-    single-tile kernel for small inputs (on a CPU tensor, their plain torch
-    versions);
+  - "cuda", the radix engine of ops/_cuda_sort.py: one histogram kernel for
+    every pass, then one fused onesweep kernel per 8 key bits (4 for a full
+    sort; num_steps=k sorts 4k bits), or one single-tile kernel for small
+    inputs (on a CPU tensor, their plain torch versions);
   - "torch", the portable path: one stable `torch.sort` on the masked key
     (see _sort_torch: stable LSD passes compose to exactly that
     permutation).

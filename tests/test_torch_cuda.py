@@ -47,24 +47,54 @@ def _assert_same(got, want) -> None:
         assert torch.equal(g, w)
 
 
+def _onesweep_on_card(keys, pays, positions):
+    """digit_histograms and onesweep_pass against their plain versions;
+    returns the pass's launches of each kernel."""
+    before = cs.launch_counts()
+    hist = cs.digit_histograms(keys, [positions])
+    _assert_same([hist], [cs.digit_histograms_ref(keys, [positions])])
+    base = (torch.cumsum(hist, 1, dtype=torch.int32) - hist)[0, : 1 << len(positions)]
+    got = cs.onesweep_pass(keys, pays, positions, base)
+    want = cs.onesweep_pass_ref(keys, pays, positions, base)
+    _assert_same([got[0], *got[1]], [want[0], *want[1]])
+    after = cs.launch_counts()
+    return after["digit_histograms"] - before["digit_histograms"], after["onesweep_pass"] - before["onesweep_pass"]
+
+
 @pytest.mark.parametrize("streams", [0, 1])
 @pytest.mark.parametrize("positions", [(0, 1, 2, 3), (8,), (26, 27, 28, 29, 30, 31)])
 @pytest.mark.parametrize("kind", ["uniform", "constant", "mod3"])
-def test_group_tiles_and_scatter_runs_match_plain(dev, kind, positions, streams):
+def test_onesweep_kernels_match_plain(dev, kind, positions, streams):
     n = 3 * cs.TILE + 777  # three full tiles and a ragged tail
     keys = _words(kind, n, dev)
     pays = [torch.arange(n, dtype=torch.int32, device=dev)][:streams]
-    before = cs.launch_counts()
-    gk, gp, counts = cs.group_tiles(keys, pays, positions)
-    rk, rp, rc = cs.group_tiles_ref(keys, pays, positions)
-    _assert_same([gk, *gp, counts], [rk, *rp, rc])
-    offsets = cs.run_offsets(counts)
-    sk, sp = cs.scatter_runs(gk, gp, counts, offsets, positions)
-    rk, rp = cs.scatter_runs_ref(gk, gp, counts, offsets, positions)
-    _assert_same([sk, *sp], [rk, *rp])
-    after = cs.launch_counts()
-    assert after["group_tiles"] - before["group_tiles"] == 1
-    assert after["scatter_runs"] - before["scatter_runs"] == 1
+    assert _onesweep_on_card(keys, pays, positions) == (1, 1)
+
+
+@pytest.mark.parametrize("n", [3 * 4096 + 777, 4096, 1_000_003])
+@pytest.mark.parametrize("positions", [tuple(range(8)), tuple(range(24, 32)), (30, 3, 17, 9, 0, 22, 5, 12)])
+@pytest.mark.parametrize("kind", ["uniform", "constant", "mod3"])
+def test_onesweep_kernels_match_plain_8_bits(dev, kind, positions, n):
+    # 8-bit digits (256 bins), non-contiguous ones, a single tile and many;
+    # 7 payload streams, the most a pass takes
+    keys = _words(kind, n, dev)
+    pays = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(7)]
+    assert _onesweep_on_card(keys, pays, positions) == (1, 1)
+
+
+def test_digit_histograms_every_pass_at_once(dev):
+    keys = _words("uniform", 1_000_003, dev)
+    groups = [tuple(range(0, 8)), tuple(range(8, 16)), tuple(range(16, 24)), (31, 25, 27)]
+    _assert_same([cs.digit_histograms(keys, groups)], [cs.digit_histograms_ref(keys, groups)])
+    # an odd offset: the kernels take the words one at a time there
+    k = keys[1:]
+    v = _words("mod3", 1_000_005, dev)[3 : 3 + k.numel()]
+    hist = cs.digit_histograms(k, [tuple(range(8))])
+    _assert_same([hist], [cs.digit_histograms_ref(k, [tuple(range(8))])])
+    base = (torch.cumsum(hist, 1, dtype=torch.int32) - hist)[0]
+    got = cs.onesweep_pass(k, [v], tuple(range(8)), base)
+    want = cs.onesweep_pass_ref(k, [v], tuple(range(8)), base)
+    _assert_same([got[0], *got[1]], [want[0], *want[1]])
 
 
 @pytest.mark.parametrize("positions", [tuple(range(32)), (31, 0, 17, 5, 9)])
@@ -89,8 +119,9 @@ def test_radix_sort_matches_torch_sort(dev, n):
     ref_k, ref_v = glu_tpu_torch.radix_sort(keys, vals, backend="torch")
     _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
                  [ref_k.view(torch.int32), ref_v.view(torch.int32)])
-    assert after["group_tiles"] - before["group_tiles"] == 8
-    assert after["scatter_runs"] - before["scatter_runs"] == 8
+    assert after["digit_histograms"] - before["digit_histograms"] == 1
+    assert after["onesweep_pass"] - before["onesweep_pass"] == 4
+    assert after["sort_single_tile"] - before["sort_single_tile"] == 0
 
 
 def test_buffers_and_timing_on_card(dev):

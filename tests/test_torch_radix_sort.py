@@ -96,13 +96,14 @@ def test_sort_tiny_counts(backend):
 
 @pytest.mark.parametrize(
     "n,steps,calls",
-    [(300, 0, (0, 0, 1)), (SMALL_SINGLE_MAX, 0, (0, 0, 1)), (SMALL_SINGLE_MAX + 1, 0, (8, 8, 0)),
-     (3 * SMALL_TILE + 17, 3, (3, 3, 0))],
+    [(300, 0, (0, 0, 1)), (SMALL_SINGLE_MAX, 0, (0, 0, 1)), (SMALL_SINGLE_MAX + 1, 0, (1, 4, 0)),
+     (3 * SMALL_TILE + 17, 3, (1, 2, 0))],
 )
 def test_engine_takes_each_kernel(n, steps, calls, seeded_rng, monkeypatch):
     # which kernel wrappers the engine calls: K3 alone up to its limit, else
-    # one K1 and one K2 per 4-bit pass
-    seen = {"group_tiles": 0, "scatter_runs": 0, "sort_single_tile": 0}
+    # one digit_histograms and one onesweep_pass per 8 bits (32 bits: 4;
+    # num_steps=3, 12 bits: 8 + 4)
+    seen = {"digit_histograms": 0, "onesweep_pass": 0, "sort_single_tile": 0}
     for name in seen:
         def spy(*args, _name=name, _fn=getattr(cs, name)):
             seen[_name] += 1
@@ -110,7 +111,7 @@ def test_engine_takes_each_kernel(n, steps, calls, seeded_rng, monkeypatch):
         monkeypatch.setattr(cs, name, spy)
     keys = seeded_rng(5).sample_int_vector(n, 0, 0xFFFFFFFF)
     glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(np.arange(n, dtype=np.uint32), "cpu"), steps)
-    assert (seen["group_tiles"], seen["scatter_runs"], seen["sort_single_tile"]) == calls
+    assert (seen["digit_histograms"], seen["onesweep_pass"], seen["sort_single_tile"]) == calls
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])

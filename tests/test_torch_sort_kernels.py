@@ -3,7 +3,12 @@ against the Pallas kernels they replace (glu_tpu/ops/_pallas_sort.py), run
 directly in interpret mode at the smallest geometry: blocks of R=8 rows of
 128 lanes, so the port's tile is shrunk to 1024 elements to match. Inputs
 come from one seeded numpy generator and go to both; every output (keys,
-payloads, counts) must be bit-identical.
+payloads, counts) must be bit-identical. The kernels' own CPU path is their
+plain version, so the wrappers are called where one exists.
+
+A onesweep pass of 7-8 bits has no Pallas counterpart (its counts would not
+fit the (8, 128) counts row), so those passes, and the engine's grouping of
+bit positions into passes, are held against the JAX engine's portable path.
 
 The JAX kernels take whole blocks padded with 0xFFFFFFFF keys; the port masks
 its ragged last tile instead. A pad holds the top digit of every pass and
@@ -61,7 +66,7 @@ def test_group_tiles_matches_group_pass(positions, seeded_rng, block_tiles):
         jnp.asarray(positions, jnp.int32), _jax_2d(keys, 0xFFFFFFFF, 3 * R), [_jax_2d(vals, 0, 3 * R)],
         R, True, nbits=len(positions),
     )
-    tk, tvs, tc = cs.group_tiles(_t(keys), [_t(vals)], positions)
+    tk, tvs, tc = cs.group_tiles_ref(_t(keys), [_t(vals)], positions)
     np.testing.assert_array_equal(_u32(tk), np.asarray(jk).reshape(-1)[:N])
     np.testing.assert_array_equal(_u32(tvs[0]), np.asarray(jvs[0]).reshape(-1)[:N])
     want = np.asarray(jc).copy()
@@ -69,27 +74,78 @@ def test_group_tiles_matches_group_pass(positions, seeded_rng, block_tiles):
     np.testing.assert_array_equal(tc.numpy(), want)
 
 
+def _jax_pass(keys, payloads, positions):
+    """One pass of the JAX engine's multi-block path (_pallas_sort.py:788-799):
+    _group_pass, then _run_descriptors, then _splice_streams; cut to N."""
+    ch, rd = ps._chunk_rows(R)
+    rows = 3 * R + ps._slack_rows(ch, rd)
+    gk, gvs, counts = ps._group_pass(
+        jnp.asarray(positions, jnp.int32), _jax_2d(keys, 0xFFFFFFFF, rows),
+        [_jax_2d(p, 0, rows) for p in payloads], R, True, 3, nbits=len(positions),
+    )
+    srcs, dsts, lens, nruns = ps._run_descriptors(counts, R)
+    outs = ps._splice_streams(srcs, dsts, lens, nruns, [gk] + gvs, rows, ch, rd, True)
+    return [np.asarray(o).reshape(-1)[:N] for o in outs]
+
+
+def _onesweep(keys, payloads, positions):
+    """The port's pass as the engine runs it: the digit's base from
+    digit_histograms, then onesweep_pass (their plain versions here)."""
+    tk = _t(keys)
+    hist = cs.digit_histograms(tk, [positions])[0, : 1 << len(positions)]
+    ok, ops = cs.onesweep_pass(tk, [_t(p) for p in payloads], positions, torch.cumsum(hist, 0, dtype=torch.int32) - hist)
+    return [_u32(o) for o in [ok, *ops]]
+
+
 @pytest.mark.parametrize("kind", ["uniform", "mod3"])
 def test_scatter_runs_matches_splice(kind, seeded_rng, block_tiles):
-    # the JAX engine's multi-block pass, _pallas_sort.py:788-799
+    # the plain stages of a pass, and the onesweep pass, against one JAX pass
     rng = seeded_rng(41)
     keys = _keys(rng, kind, N)
     vals = np.arange(N, dtype=np.uint32)
     positions = (0, 1, 2, 3)
-    ch, rd = ps._chunk_rows(R)
-    slack = ps._slack_rows(ch, rd)
-    rows = 3 * R + slack
-    pos = jnp.asarray(positions, jnp.int32)
-    gk, gvs, counts = ps._group_pass(
-        pos, _jax_2d(keys, 0xFFFFFFFF, rows), [_jax_2d(vals, 0, rows)], R, True, 3
-    )
-    srcs, dsts, lens, nruns = ps._run_descriptors(counts, R)
-    jk, jv = ps._splice_streams(srcs, dsts, lens, nruns, [gk] + gvs, rows, ch, rd, True)
+    jk, jv = _jax_pass(keys, [vals], positions)
 
-    tk, tvs, tc = cs.group_tiles(_t(keys), [_t(vals)], positions)
-    sk, svs = cs.scatter_runs(tk, tvs, tc, cs.run_offsets(tc), positions)
-    np.testing.assert_array_equal(_u32(sk), np.asarray(jk).reshape(-1)[:N])
-    np.testing.assert_array_equal(_u32(svs[0]), np.asarray(jv).reshape(-1)[:N])
+    tk, tvs, tc = cs.group_tiles_ref(_t(keys), [_t(vals)], positions)
+    sk, svs = cs.scatter_runs_ref(tk, tvs, tc, cs.run_offsets(tc), positions)
+    np.testing.assert_array_equal(_u32(sk), jk)
+    np.testing.assert_array_equal(_u32(svs[0]), jv)
+    for got, want in zip(_onesweep(keys, [vals], positions), [jk, jv]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "kind,streams,positions",
+    [("uniform", 0, (0, 1, 2, 3, 4, 5)), ("mod3", 0, (0, 1, 2, 3)),
+     ("uniform", 3, (5, 17)), ("mod3", 3, (1, 0, 9))],
+)
+def test_onesweep_pass_matches_jax_pass(kind, streams, positions, seeded_rng, block_tiles):
+    # 0 and 3 payloads, 2-6 bits, non-contiguous and out-of-order positions
+    # (1 payload: test_scatter_runs_matches_splice)
+    rng = seeded_rng(43)
+    keys = _keys(rng, kind, N)
+    pays = [rng.sample_int_vector(N, 0, 0xFFFFFFFF) for _ in range(streams)]
+    want = _jax_pass(keys, pays, positions)
+    got = _onesweep(keys, pays, positions)
+    assert len(got) == len(want) == 1 + streams
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("groups", [[(0, 1, 2, 3), (8, 9, 10, 11)], [(31, 2), (6,), (12, 13, 14, 15, 16, 17)]])
+def test_digit_histograms_matches_group_pass_counts(groups, seeded_rng, block_tiles):
+    # every pass's histogram in one call, against _group_pass's per-block
+    # counts summed over the blocks (the pads hold the top digit)
+    rng = seeded_rng(47)
+    keys = _keys(rng, "uniform", N)
+    hist = cs.digit_histograms(_t(keys), groups).numpy()
+    assert hist.shape == (len(groups), cs.BINS) and hist.dtype == np.int32
+    for p, g in enumerate(groups):
+        _, _, jc = ps._group_pass(jnp.asarray(g, jnp.int32), _jax_2d(keys, 0xFFFFFFFF, 3 * R), [], R, True, nbits=len(g))
+        want = np.asarray(jc).sum(axis=0)
+        want[-1] -= PAD
+        np.testing.assert_array_equal(hist[p, : 1 << len(g)], want)
+        assert not hist[p, 1 << len(g):].any()
 
 
 @pytest.mark.parametrize("positions,streams", [(tuple(range(32)), 1), (tuple(range(12)), 0)])
@@ -110,11 +166,15 @@ def test_sort_single_tile_matches_single_block_sort(positions, streams, seeded_r
 
 @pytest.mark.parametrize(
     "bit_positions,streams",
-    [(None, 0), (None, 3), ((3, 9, 17, 30, 31), 2), ((0, 4, 8, 12, 16, 20, 24), 1)],
+    [(None, 0), (None, 3), ((3, 9, 17, 30, 31), 2), ((0, 4, 8, 12, 16, 20, 24), 1),
+     (tuple(range(8)), 1), (tuple(range(7)), 0), (tuple(range(24, 32)), 7),
+     ((30, 1, 17, 4, 22, 9, 13, 27, 0, 5, 11), 1), (tuple(range(4, 32)), 1)],
 )
 def test_engine_streams_match_jax(bit_positions, streams, seeded_rng, monkeypatch):
-    # the engine's N-stream contract and its pass grouping (a 5-bit wide
-    # pass; 7 bits as 4 + 3) against the JAX engine's portable path
+    # the engine's N-stream contract (up to 7 payloads) and its grouping into
+    # passes of up to 8 bits (one 8-bit pass, one of 7 bits, 8 + 3 bits out
+    # of order, 28 bits as 8 + 8 + 8 + 4) against the JAX engine's portable
+    # path
     monkeypatch.setattr(cs, "TILE", 256)
     monkeypatch.setattr(cs, "SINGLE_TILE_MAX", 512)
     rng = seeded_rng(61)
@@ -142,25 +202,56 @@ def test_run_offsets_matches_descriptors(seeded_rng):
     np.testing.assert_array_equal(offsets.T.reshape(-1)[nonempty], np.asarray(dsts)[: int(nruns)])
 
 
+def test_onesweep_look_back_over_sparse_tiles(seeded_rng, monkeypatch):
+    # 40 tiles of 64 and a ragged one, where most digits are empty in most
+    # tiles: every tile's place comes from the counts of the tiles before
+    # it; against the JAX engine on the same single 8-bit pass
+    monkeypatch.setattr(cs, "TILE", 64)
+    rng = seeded_rng(67)
+    n = 40 * 64 + 23
+    low = np.sort(rng.sample_int_vector(n, 0, 255))          # few digits per tile, rising
+    low[rng.sample_int_vector(50, 0, n - 1)] = 0xB7          # one digit scattered over some tiles
+    keys = (rng.sample_int_vector(n, 0, 0xFFFFFF) << np.uint32(8)) | low
+    vals = np.arange(n, dtype=np.uint32)
+    for positions in (tuple(range(8)), (8, 1, 2, 3, 4, 5, 6, 7)):
+        tk = _t(keys)
+        hist = cs.digit_histograms(tk, [positions])
+        np.testing.assert_array_equal(hist[0].numpy(), np.bincount(cs._digits(tk, positions).numpy(), minlength=cs.BINS))
+        _, _, counts = cs.group_tiles_ref(tk, [], positions)
+        assert (counts == 0).float().mean() > 0.8  # mostly empty (tile, digit) runs
+        jk, (jv,) = jax_sort_streams(jnp.asarray(keys), (jnp.asarray(vals),), 8, "xla", positions)
+        got = _onesweep(keys, [vals], positions)
+        np.testing.assert_array_equal(got[0], np.asarray(jk))
+        np.testing.assert_array_equal(got[1], np.asarray(jv))
+
+
 def test_wrappers_check_arguments():
     k = torch.zeros(10, dtype=torch.int32)
+    base = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(GluError, match="int32 words"):
-        cs.group_tiles(k.view(torch.uint32), [], (0,))
+        cs.onesweep_pass(k.view(torch.uint32), [], (0,), base)
     with pytest.raises(GluError, match="payload streams"):
-        cs.group_tiles(k, [k] * cs.MAX_STREAMS, (0,))
+        cs.onesweep_pass(k, [k] * cs.MAX_STREAMS, (0,), base)
     with pytest.raises(GluError, match="contiguous"):
-        cs.group_tiles(torch.zeros(20, dtype=torch.int32)[::2], [], (0,))
+        cs.onesweep_pass(torch.zeros(20, dtype=torch.int32)[::2], [], (0,), base)
     with pytest.raises(GluError, match="length mismatch"):
-        cs.group_tiles(k, [k[:5]], (0,))
+        cs.onesweep_pass(k, [k[:5]], (0,), base)
     with pytest.raises(GluError, match="bit positions"):
-        cs.group_tiles(k, [], tuple(range(7)))
+        cs.onesweep_pass(k, [], tuple(range(9)), torch.zeros(512, dtype=torch.int32))
+    with pytest.raises(GluError, match="digit_base"):
+        cs.onesweep_pass(k, [], (0, 1), base)
+    with pytest.raises(GluError, match="digit_base"):
+        cs.onesweep_pass(k, [], (0,), base.to(torch.int64))
+    with pytest.raises(GluError, match="passes"):
+        cs.digit_histograms(k, [])
+    with pytest.raises(GluError, match="passes"):
+        cs.digit_histograms(k, [(0,)] * (cs.MAX_PASSES + 1))
+    with pytest.raises(GluError, match="bit positions"):
+        cs.digit_histograms(k, [tuple(range(9))])
     with pytest.raises(GluError, match="distinct"):
         cs.sort_single_tile(k, [], (3, 3))
     with pytest.raises(GluError, match="0..31"):
         cs.sort_single_tile(k, [], (32,))
     with pytest.raises(GluError, match="single-tile"):
         cs.sort_single_tile(torch.zeros(cs.SINGLE_TILE_MAX + 1, dtype=torch.int32), [], (0,))
-    counts = torch.zeros((1, 16), dtype=torch.int32)
-    with pytest.raises(GluError, match="shape"):
-        cs.scatter_runs(k, [], counts, counts, (0, 1))
-    assert cs.launch_counts() == {"group_tiles": 0, "scatter_runs": 0, "sort_single_tile": 0}
+    assert cs.launch_counts() == {"digit_histograms": 0, "onesweep_pass": 0, "sort_single_tile": 0}
