@@ -92,7 +92,9 @@ def _ptxas_summary(log: str) -> list:
 
 def _profile_kernels(torch, fn) -> list:
     """Device time of each kernel launch of one warm call of fn, in launch
-    order, from torch.profiler; "not measured" when it sees no device time."""
+    order, from torch.profiler, then their sum against the same call's span
+    by CUDA events, and the device's idle share of that span; "not measured"
+    when the profiler sees no device time."""
     import re
     import warnings
 
@@ -103,16 +105,25 @@ def _profile_kernels(torch, fn) -> list:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    lines = []
+    lines, busy_ms = [], 0.0
     for evt in sorted(events, key=lambda e: e.time_range.start):
         us = evt.time_range.elapsed_us()
         if us > 0:
             name = re.search(r"\w+_kernel(<[^>]*>)?", evt.name)
             lines.append(f"{name.group(0) if name else evt.name[:60]} {us / 1e3:.4f} ms")
-    return lines or ["kernel device times not measured (the profiler saw no device time)"]
+            busy_ms += us / 1e3
+    if not lines:
+        return ["kernel device times not measured (the profiler saw no device time)"]
+    span_ms = start.elapsed_time(end)
+    lines.append(f"the traced call: kernels {busy_ms:.4f} ms of its {span_ms:.4f} ms span by CUDA events, "
+                 f"device idle {100 * (1 - busy_ms / span_ms):.1f}%")
+    return lines
 
 
 def main() -> int:
@@ -471,11 +482,9 @@ def main() -> int:
     library = {"digit_histograms": None, "onesweep_pass": None,
                "sort_single_tile": median_ms(sort_and_gather, reps=20)}
     pair_bytes = MAIN_N * 2 * 4
-    # the look-back's status words: zeroed, then written once by their tile
-    status_bytes = 2 * (MAIN_N // cs.TILE) * cs.BINS * 8
-    bounds = {
+    bounds = {  # the function's bytes: the pass's status words are the design's, not counted
         "digit_histograms": _bound(MAIN_N * 4 + len(hist_groups) * cs.BINS * 4, len(hist_groups) * MAIN_N),
-        "onesweep_pass": _bound(2 * pair_bytes + status_bytes + cs.BINS * 4, MAIN_N),
+        "onesweep_pass": _bound(2 * pair_bytes + cs.BINS * 4, MAIN_N),
         "sort_single_tile": _bound(2 * cs.SINGLE_TILE_MAX * 2 * 4, 8 * cs.SINGLE_TILE_MAX),
     }
     del sk, sv

@@ -41,6 +41,12 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def nvcc_command(sources: list[pathlib.Path], output: pathlib.Path, *, shared: bool = False) -> list[str]:
+    """nvcc's command that compiles sources with the package's flags into an
+    object, or with shared=True into a shared library of their own."""
+    return [_nvcc(), *_FLAGS, "-shared" if shared else "-c", "-o", str(output), *map(str, sources)]
+
+
 def _sources() -> list[pathlib.Path]:
     return sorted(_CSRC.glob("*.cu"))
 
@@ -53,7 +59,7 @@ def _library_path() -> pathlib.Path:
     return _BUILD / f"libglu_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+def run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
     """Run the commands at once; returns (exit code, output) of each. Every
     process is ended before this returns, whatever happens."""
     procs = []
@@ -85,11 +91,11 @@ def build() -> tuple[pathlib.Path, float, str]:
     tmp = _BUILD / f"{tag}.tmp"
     start = time.perf_counter()
     try:
-        results = _run_all([[_nvcc(), *_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objects)])
+        results = run_all([nvcc_command([src], o) for src, o in zip(_sources(), objects)])
         output = "".join(out for _, out in results)
         if any(rc != 0 for rc, _ in results):
             raise GluError(f"nvcc failed:\n{output}")
-        [(rc, link_out)] = _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)]])
+        [(rc, link_out)] = run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)]])
         output += link_out
         if rc != 0:
             raise GluError(f"nvcc failed to link, exit code {rc}:\n{link_out}")
@@ -107,7 +113,12 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     so, _, _ = build()
-    lib = ctypes.CDLL(str(so))
+    _lib = bind_signatures(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_sort_bins",
                  "glu_fold_tile"):
@@ -127,5 +138,4 @@ def load_library() -> ctypes.CDLL:
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_sort_single_tile", "glu_reduce_pass",
                  "glu_scan_pass"):
         getattr(lib, name).restype = c_int
-    _lib = lib
     return lib

@@ -3,8 +3,8 @@
 
     python3 tools/onesweep_variants.py          # from the root of the repository
 
-Each variant is glu_tpu_torch/csrc/radix_sort.cu (with csrc/lookback.cuh) as
-it stands, with a few lines replaced: another tile shape, another ranker,
+Each variant is the kernel library, glu_tpu_torch/csrc, as it stands, with a
+few lines of radix_sort.cu or lookback.cuh replaced: another tile shape, another ranker,
 other memory orders on the status words, the payloads loaded later, and two
 diagnostics that drop a step (their output is wrong; they bound that step's
 cost). Every variant is built with nvcc into glu_tpu_torch/_build/variants/
@@ -14,6 +14,11 @@ status words' zeroing is timed alone and subtracted) and digit_histograms
 over 4 passes of 8 bits. Each variant's output is checked against the plain
 torch versions. The card's name and power limit come first; one line per
 variant follows. Needs a CUDA device and nvcc; writes nothing else.
+
+The edits name exact text of the sources, so an edit of those lines breaks
+a variant: tests/test_torch_build.py checks on the CPU that every
+variant still applies. The library is built and bound by glu_tpu_torch's
+own _build (nvcc_command, run_all, bind_signatures).
 """
 
 from __future__ import annotations
@@ -66,16 +71,22 @@ VARIANTS = {
 }
 
 
-def _write_sources(name: str, edits) -> pathlib.Path:
+def variant_sources(name: str) -> dict:
+    """{file name: text} of every kernel source with the variant's edits;
+    raises ValueError when an edit's text is not found exactly once."""
+    texts = {f.name: f.read_text() for f in CSRC.glob("*.cu*")}
+    for file, old, new in VARIANTS[name]:
+        if texts[file].count(old) != 1:
+            raise ValueError(f"variant {name!r}: {old!r} is not found exactly once in {file}")
+        texts[file] = texts[file].replace(old, new)
+    return texts
+
+
+def _write_sources(name: str) -> pathlib.Path:
     folder = OUT / f"v{list(VARIANTS).index(name)}"
     folder.mkdir(parents=True, exist_ok=True)
-    texts = {f.name: f.read_text() for f in CSRC.glob("*.cu*")}
-    for file, old, new in edits:
-        if old not in texts[file]:
-            raise SystemExit(f"variant {name!r}: {old!r} not found in {file}")
-        texts[file] = texts[file].replace(old, new)
-    for file in ("radix_sort.cu", "lookback.cuh"):
-        (folder / file).write_text(texts[file])
+    for file, text in variant_sources(name).items():
+        (folder / file).write_text(text)
     return folder
 
 
@@ -93,20 +104,16 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(gpu)
     builds = []
-    for name, edits in VARIANTS.items():
-        folder = _write_sources(name, edits)
+    for name in VARIANTS:
+        folder = _write_sources(name)
         so = folder / "lib.so"
-        builds.append((name, so, [_build._nvcc(), *_build._FLAGS, "-shared", "-o", str(so), str(folder / "radix_sort.cu")]))
-    results = _build._run_all([cmd for _, _, cmd in builds])
+        builds.append((name, so, _build.nvcc_command(sorted(folder.glob("*.cu")), so, shared=True)))
+    results = _build.run_all([cmd for _, _, cmd in builds])
     libs = {}
     for (name, so, _), (rc, out) in zip(builds, results):
         if rc != 0:
             raise SystemExit(f"variant {name!r} failed to build:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.glu_sort_tile.restype = c_int
-        lib.glu_onesweep_pass.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
-        lib.glu_digit_histograms.argtypes = [ptr, c_int, ptr, ptr, c_int, ptr, ptr]
+        lib = _build.bind_signatures(ctypes.CDLL(str(so)))
         lines = out.splitlines()
         at = next(i for i, line in enumerate(lines) if "Compiling entry" in line and "onesweep_pass_kernel" in line)
         spills = next(line for line in lines[at:] if "spill stores" in line).strip()
