@@ -12,13 +12,16 @@ Phases, each of which raises (exit code 1) on any failure:
      against its plain torch version on the card, bit for bit, at the main
      path's shape and at small ragged shapes: uniform, constant and 3-valued
      keys, 8-bit, 1-bit, top-byte and non-contiguous digits, 0, 1 and 7
-     payloads;
+     payloads; K3 at n = 1, 2, 1000, 10000 and its limit SINGLE_TILE_MAX
+     with 32 bits (4 passes of 8), 12 bits (8 + 4), the top byte and 5
+     scattered bits;
   4. the sort's main path: glu_tpu_torch.radix_sort on 2**28 u32 key/value
      pairs and on smaller and edge-case inputs, bit for bit against
      radix_sort(..., backend="torch") (one stable torch.sort) on the card;
   5. launch counts of the sort: the 2**28 sort ran digit_histograms once,
-     onesweep_pass 4 times and sort_single_tile never; num_steps=3 (12
-     bits) 1 and 2 times; the small sort ran sort_single_tile alone;
+     onesweep_pass 4 times and sort_single_tile never, and so did a sort of
+     SINGLE_TILE_MAX + 1 pairs; num_steps=3 (12 bits) 1 and 2 times; the
+     sorts of 10,000 and SINGLE_TILE_MAX pairs ran sort_single_tile alone;
   6. the scan and reduce kernels (exclusive_scan K4, reduce K5) against
      their plain torch versions on the card, for sum, mul, min and max on
      int32, uint32, float32 and float64, at ragged, partitioned, vector and
@@ -32,7 +35,11 @@ Phases, each of which raises (exit code 1) on any failure:
      counts, set to 0 before and read after, match the design (K4 3
      launches per multi-tile scan, K5 2 per reduce);
   8. timings (CUDA events, medians), for the record only, and a per-launch
-     profile (torch.profiler) of one 2**28 sort, scan and reduce.
+     profile (torch.profiler) of one 2**28 sort, scan and reduce; K3's
+     kernel alone (profiler), its wrapper, its host time per call and
+     radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the crossover
+     table of K3, the histogram + onesweep path and torch.sort(stable) +
+     gather from 1,024 to 65,536 pairs.
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's line, and the one before that the JSON summary of the kernels.
 """
@@ -46,6 +53,8 @@ import time
 
 SEED = 20260
 MAIN_N = 1 << 28
+K3_N = 16384  # K3's timed shape in the kernels line (its limit before the 8-bit redesign)
+CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536)
 REPS = 3
 FOLD_REPS = 10
 # the least time of a kernel: the larger of its bytes over the memory rate
@@ -208,10 +217,11 @@ def main() -> int:
     k3_cases = 0
     for n in (1, 2, 1000, 10000, cs.SINGLE_TILE_MAX):
         for kd in ("uniform", "constant", "mod3"):
-            for pos in (tuple(range(32)), tuple(range(12)), (31, 0, 17, 5, 9)):
-                for ns in (0, 1):
+            for pos in (tuple(range(32)), tuple(range(12)), tuple(range(24, 32)), (31, 0, 17, 5, 9)):
+                for ns in (0, 1, 7):
                     keys = words(n, kd)
-                    pays = [torch.arange(n, dtype=torch.int32, device=dev)][:ns]
+                    pays = [torch.arange(n, dtype=torch.int32, device=dev)] + [words(n, "uniform") for _ in range(ns - 1)]
+                    pays = pays[:ns]
                     got = cs.sort_single_tile(keys, pays, pos)
                     want = cs.sort_single_tile_ref(keys, pays, pos)
                     check_same("sort_single_tile", f"n={n} keys={kd} bits={pos} payloads={ns}",
@@ -237,6 +247,8 @@ def main() -> int:
         ("2^24 presorted", 1 << 24, "presorted", 0),
         ("2^24 reversed", 1 << 24, "reversed", 0),
         ("10000 uniform (single tile)", 10_000, "uniform", 0),
+        ("SINGLE_TILE_MAX uniform (single tile)", cs.SINGLE_TILE_MAX, "uniform", 0),
+        ("SINGLE_TILE_MAX+1 uniform", cs.SINGLE_TILE_MAX + 1, "uniform", 0),
         ("n=0", 0, "uniform", 0),
         ("n=1", 1, "uniform", 0),
         ("n=2", 2, "uniform", 0),
@@ -272,7 +284,8 @@ def main() -> int:
 
     # -- 5. launch counts -----------------------------------------------------
     want_launches = {"2^28 uniform": (1, 4, 0), "2^24 uniform num_steps=3": (1, 2, 0),
-                     "10000 uniform (single tile)": (0, 0, 1)}
+                     "10000 uniform (single tile)": (0, 0, 1), "SINGLE_TILE_MAX uniform (single tile)": (0, 0, 1),
+                     "SINGLE_TILE_MAX+1 uniform": (1, 4, 0)}
     for label, want in want_launches.items():
         got = tuple(per_case[label][k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile"))
         if got != want:
@@ -441,6 +454,19 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return sorted(times)[len(times) // 2]
 
+    def host_us(fn, reps: int = 50) -> float:
+        """Host time per call: from the call to its return, the card idle
+        before each call (median)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return sorted(times)[reps // 2] * 1e6
+
     def turns(kernel_fn, plain_fn, reps: int = REPS):
         """(kernel ms, plain ms): the lower of two medians each, measured in
         turns plain, kernel, kernel, plain."""
@@ -469,27 +495,51 @@ def main() -> int:
     timing["onesweep_pass"] = turns(lambda: cs.onesweep_pass(kw, [vw], pos, base),
                                     lambda: cs.onesweep_pass_ref(kw, [vw], pos, base))
     del hist, base, kw, vw
-    sk = words(cs.SINGLE_TILE_MAX, "uniform")
-    sv = torch.arange(cs.SINGLE_TILE_MAX, dtype=torch.int32, device=dev)
     full = tuple(range(32))
-    timing["sort_single_tile"] = turns(lambda: cs.sort_single_tile(sk, [sv], full),
-                                       lambda: cs.sort_single_tile_ref(sk, [sv], full), reps=20)
 
-    def sort_and_gather():
-        r = torch.sort(sk, stable=True)
-        return r.values, sv[r.indices]
+    def sort_and_gather(k, v):
+        r = torch.sort(k, stable=True)
+        return r.values, v[r.indices]
 
-    library = {"digit_histograms": None, "onesweep_pass": None,
-               "sort_single_tile": median_ms(sort_and_gather, reps=20)}
+    library = {"digit_histograms": None, "onesweep_pass": None}
+    for n in (K3_N, cs.SINGLE_TILE_MAX):  # K3: the kernel alone, its wrapper, the host, the entry point
+        sk, sv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
+        k3 = lambda: cs.sort_single_tile(sk, [sv], full)  # noqa: E731
+        k3_ms, plain_ms = turns(k3, lambda: cs.sort_single_tile_ref(sk, [sv], full), reps=20)
+        api_ms = median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(sk), as_u32(sv)), reps=20)
+        lib_ms = median_ms(lambda: sort_and_gather(sk, sv), reps=20)
+        print(f"time sort_single_tile ({n} pairs, 32 bits): wrapper {k3_ms:.4f} ms, host {host_us(k3):.1f} us "
+              f"per call, radix_sort {api_ms:.4f} ms, torch.sort(stable)+gather {lib_ms:.4f} ms {tag}")
+        for line in _profile_kernels(torch, k3):
+            print(f"profile sort_single_tile ({n} pairs, 32 bits): {line} {tag}")
+        if n == K3_N:
+            timing["sort_single_tile"], library["sort_single_tile"] = (k3_ms, plain_ms), lib_ms
+        del sk, sv
+
+    def onesweep_path(k, v):
+        """The engine's multi-tile path (1 histogram + 4 passes) at any n."""
+        hist = cs.digit_histograms(k, hist_groups)
+        for g, base in zip(hist_groups, torch.cumsum(hist, 1, dtype=torch.int32) - hist):
+            k, (v,) = cs.onesweep_pass(k, [v], g, base)
+        return k, v
+
+    for n in CROSSOVER_N:  # where K3 stops beating the onesweep path
+        ck, cv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
+        k3_text = (f"{median_ms(lambda: cs.sort_single_tile(ck, [cv], full), reps=20):.4f}"
+                   if n <= cs.SINGLE_TILE_MAX else "- (above its limit)")
+        print(f"crossover n={n} (32-bit pairs, ms): sort_single_tile {k3_text}, histogram + onesweep "
+              f"{median_ms(lambda: onesweep_path(ck, cv), reps=20):.4f}, torch.sort(stable)+gather "
+              f"{median_ms(lambda: sort_and_gather(ck, cv), reps=20):.4f}, radix_sort "
+              f"{median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv)), reps=20):.4f} {tag}")
+        del ck, cv
     pair_bytes = MAIN_N * 2 * 4
     bounds = {  # the function's bytes: the pass's status words are the design's, not counted
         "digit_histograms": _bound(MAIN_N * 4 + len(hist_groups) * cs.BINS * 4, len(hist_groups) * MAIN_N),
         "onesweep_pass": _bound(2 * pair_bytes + cs.BINS * 4, MAIN_N),
-        "sort_single_tile": _bound(2 * cs.SINGLE_TILE_MAX * 2 * 4, 8 * cs.SINGLE_TILE_MAX),
+        "sort_single_tile": _bound(2 * K3_N * 2 * 4, len(hist_groups) * K3_N),  # 4 passes of 8 bits
     }
-    del sk, sv
     shapes = {"digit_histograms": "2^28 keys, 4 passes of 8 bits", "onesweep_pass": "2^28 pairs, one 8-bit pass",
-              "sort_single_tile": f"{cs.SINGLE_TILE_MAX} pairs, 32 bits"}
+              "sort_single_tile": f"{K3_N} pairs, 32 bits"}
     for name, (k_ms, p_ms) in timing.items():
         lib_text = "" if library[name] is None else f", torch.sort(stable)+gather {library[name]:.4f} ms"
         print(f"time {name} ({shapes[name]}): kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms{lib_text}, "

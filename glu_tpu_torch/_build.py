@@ -130,7 +130,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_digit_histograms.argtypes = [ptr, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, count, ..., stream)
     lib.glu_onesweep_pass.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
-    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr]
+    # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, stream)
+    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr]
     # (input, parts, len, ctas, dtype, op, output, stream)
     lib.glu_reduce_pass.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, ptr, ptr]
     # (input, output, parts, len, dtype, op, carries or None, stream)

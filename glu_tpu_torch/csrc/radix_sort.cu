@@ -17,6 +17,7 @@
 // every entry returns a cudaError_t, cudaGetLastError() after its launch.
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,7 +31,6 @@ constexpr int kMaxStreams = 8;       // keys + up to 7 payload streams
 constexpr int kMaxPassBits = 8;      // a onesweep pass takes 1-8 key bits
 constexpr int kMaxBins = 1 << kMaxPassBits;
 constexpr int kMaxPasses = 4;        // 32 key bits in passes of 8
-constexpr int kMaxPositions = 32;
 
 // 6144 elements per onesweep tile: 2 CTAs per SM with one payload stream,
 // 1 with seven (the shared memory holds every stream's tile). Larger tiles
@@ -46,16 +46,18 @@ static_assert(kTileThreads >= kMaxBins, "one thread per digit in the look-back")
 
 constexpr int kHistThreads = 1024;
 
-constexpr int kSingleThreads = 512;
-constexpr int kSingleItems = 32;
-constexpr int kSingleMax = kSingleThreads * kSingleItems;  // 16384: K3's limit
-constexpr int kSinglePassBits = 4;
-constexpr int kSingleBins = 1 << kSinglePassBits;
-
-struct BitPositions {
-  int bit[kMaxPositions];
-  int count;
-};
+// K3: one CTA of 1024 threads, up to 24 items a thread. The shared memory
+// holds the keys once and their u16 source index twice (8 bytes an element)
+// and every warp's 256 running counts: 229,376 bytes at 24,576 elements,
+// which is where the 232,448 bytes a block may take end.
+constexpr int kSingleThreads = 1024;
+constexpr int kSingleItems = 24;
+constexpr int kSingleMax = kSingleThreads * kSingleItems;  // 24576: K3's limit
+constexpr int kSingleWarps = kSingleThreads / 32;
+constexpr int kRankRows = 2;  // rows of 32 items ranked at once
+static_assert(kSingleThreads >= kMaxBins, "one thread per digit in the scan");
+static_assert(kSingleItems % kRankRows == 0, "whole chunks of rows");
+static_assert(kSingleMax <= 65536, "u16 source index");
 
 struct Streams {
   const uint32_t* in[kMaxStreams];
@@ -86,33 +88,6 @@ struct PassDigits {
   Digit pass[kMaxPasses];
   int count;
 };
-
-// One word of padding after every 32 shared-memory words, so that threads
-// reading their blocked items (stride ITEMS) fall on different banks.
-__host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
-
-__device__ __forceinline__ uint32_t digit_of(uint32_t key, const int* bit, int nbits) {
-  uint32_t d = 0;
-  for (int j = 0; j < nbits; ++j) d |= ((key >> bit[j]) & 1u) << j;
-  return d;
-}
-
-// Copies the by-value launch arguments that are indexed at run time into
-// shared memory (static indices only, so nothing spills to local memory).
-__device__ __forceinline__ void stage_args(const Streams& s, const BitPositions& pos,
-                                           const uint32_t** s_in, uint32_t** s_out,
-                                           int* s_bit) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < kMaxStreams; ++j) {
-      s_in[j] = s.in[j];
-      s_out[j] = s.out[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxPositions; ++j) s_bit[j] = pos.bit[j];
-  }
-  __syncthreads();
-}
 
 // Exclusive sum of one int per thread over the block; *total gets the sum of
 // all. warp_sums holds THREADS/32 + 1 ints. Ends with a barrier, so the
@@ -147,52 +122,6 @@ __device__ int block_exclusive_sum(int value, int* warp_sums, int* total) {
   const int result = warp_sums[warp] + x - value;
   __syncthreads();
   return result;
-}
-
-// Stable rank, by digit, of this thread's ITEMS blocked items: tile positions
-// threadIdx.x * ITEMS + j, of which the first `nvalid` are real.
-//
-// Each thread counts its own items in its own column of counters[bin][thread]
-// in item order. No atomics take part, so equal digits keep their input
-// order. One block-wide exclusive sum over the [bin][thread] table then gives
-// each (bin, thread) its first rank: every item of a lower bin plus the items
-// of this bin held by lower threads. bin_start[d] receives the first rank of
-// bin d and bin_start[bins] the number of real items.
-template <int THREADS, int ITEMS>
-__device__ void rank_blocked(const uint32_t (&digit)[ITEMS], int nvalid, int bins,
-                             int* counters, int* warp_sums, int* bin_start,
-                             int (&rank)[ITEMS]) {
-  const int t = threadIdx.x;
-  for (int i = t; i < bins * THREADS; i += THREADS) counters[i] = 0;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    if (j < nvalid) {
-      int* c = counters + digit[j] * THREADS + t;
-      rank[j] = *c;
-      *c = rank[j] + 1;
-    }
-  }
-  __syncthreads();
-  // thread t scans the contiguous run [t * bins, (t + 1) * bins) of the table
-  int* mine = counters + t * bins;
-  int sum = 0;
-  for (int k = 0; k < bins; ++k) sum += mine[k];
-  int total;
-  int run = block_exclusive_sum<THREADS>(sum, warp_sums, &total);
-  for (int k = 0; k < bins; ++k) {
-    const int c = mine[k];
-    mine[k] = run;
-    run += c;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    if (j < nvalid) rank[j] += counters[digit[j] * THREADS + t];
-  }
-  for (int d = t; d < bins; d += THREADS) bin_start[d] = counters[d * THREADS];
-  if (t == 0) bin_start[bins] = total;
-  __syncthreads();
 }
 
 // The counts half of K1 (glu_tpu/ops/_pallas_sort.py::_counts_row, one row
@@ -247,6 +176,35 @@ __device__ __forceinline__ unsigned match_digit(uint32_t d, int nbits) {
     peers &= (d >> b) & 1u ? bit : ~bit;
   }
   return d < kMaxBins ? peers : 0u;
+}
+
+// The stable ranker of both sort kernels: ROWS rows of 32 digits of one
+// warp (d < 2^nbits, or kMaxBins for a lane past the ragged end), ranked row
+// by row in order. runs[d] holds the warp's next rank of digit d. The rows
+// are independent until the running ranks: every row's peer mask first, then
+// the leaders' adds (the lowest lane of each group of peers advances runs[d]
+// by their number), then the ranks. place(j, rank) is called for every lane
+// of row j that has a digit; lanes of one row that share a digit rank in
+// lane order, so the order is (row, lane): input order.
+template <int ROWS, typename Place>
+__device__ __forceinline__ void rank_rows(const uint32_t (&dig)[ROWS], int nbits, int* runs, Place place) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers[ROWS];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) peers[j] = match_digit(dig[j], nbits);
+  int run[ROWS];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    run[j] = 0;
+    if (peers[j] && lane == __ffs(peers[j]) - 1) run[j] = atomicAdd(&runs[dig[j]], __popc(peers[j]));
+    __syncwarp();  // orders the adds of successive rows, made by different leader lanes
+  }
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    const int leader = peers[j] ? __ffs(peers[j]) - 1 : lane;
+    const int rank = __shfl_sync(0xffffffffu, run[j], leader) + __popc(peers[j] & ((1u << lane) - 1u));
+    if (peers[j]) place(j, rank);
+  }
 }
 
 // Starts the copy of one stream's tile (tile_n <= kTile words at `in`) into
@@ -370,24 +328,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileCtasPerSm)
     for (int w = 0; w < kTileWarps; ++w) warp_runs[w * kMaxBins + t] += start;
   }
   __syncthreads();
-  // The rows of 32 items are independent until the running ranks: every
-  // row's peer mask first, then the leaders' adds, then the ranks.
-  unsigned peers[kTileItems];
-#pragma unroll
-  for (int j = 0; j < kTileItems; ++j) peers[j] = match_digit(dig[j], digit.nbits);
-  int run[kTileItems];
-#pragma unroll
-  for (int j = 0; j < kTileItems; ++j) {
-    run[j] = 0;
-    if (peers[j] && lane == __ffs(peers[j]) - 1) run[j] = atomicAdd(&runs[dig[j]], __popc(peers[j]));
-    __syncwarp();  // orders the adds of successive rows, made by different leader lanes
-  }
-#pragma unroll
-  for (int j = 0; j < kTileItems; ++j) {
-    const int leader = peers[j] ? __ffs(peers[j]) - 1 : lane;
-    const int rank = __shfl_sync(0xffffffffu, run[j], leader) + __popc(peers[j] & ((1u << lane) - 1u));
-    if (peers[j]) source[rank] = static_cast<uint16_t>(first + 32 * j + lane);
-  }
+  rank_rows(dig, digit.nbits, runs,
+            [&](int j, int rank) { source[rank] = static_cast<uint16_t>(first + 32 * j + lane); });
 
   // (c)
   if (owns_digit) {
@@ -424,79 +366,154 @@ __global__ void __launch_bounds__(kTileThreads, kTileCtasPerSm)
   }
 }
 
+// Copies n words from device memory to buf in shared memory, in order: 16
+// bytes a load where `in` is 16-byte aligned, then single words.
+__device__ __forceinline__ void load_words(const uint32_t* in, uint32_t* buf, int n) {
+  const bool vec = (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+  for (int c = threadIdx.x; 4 * c < n; c += blockDim.x) {
+    const int i = 4 * c;
+    if (vec && i + 4 <= n) {
+      *reinterpret_cast<uint4*>(buf + i) = *reinterpret_cast<const uint4*>(in + i);
+    } else {
+      for (int e = i; e < min(i + 4, n); ++e) buf[e] = in[e];
+    }
+  }
+}
+
 // K3. Replaces glu_tpu/ops/_pallas_sort.py::_single_block_sort.
 //
-// One CTA sorts all of an input of at most kSingleMax elements: the keys and
-// a u16 source index stay in shared memory through every 4-bit pass (a
-// blocked rank with per-thread counter columns), and the payload streams are
-// gathered once at the end by that index. So the device memory sees one read
-// and one write per word, whatever the number of passes; what bounds the
-// kernel is the single SM it runs on. Carrying the index instead of the
-// payloads keeps the shared-memory need at 6 bytes per element for any
-// payload count: 16384 elements take 134,144 bytes of the 232,448 a block
-// may have.
+// One CTA sorts all of an input of at most kSingleMax elements, one stable
+// pass per Digit of plan (1-4 passes of 1-8 key bits: a 32-bit sort is 4
+// passes). The keys and a u16 source index stay in shared memory through
+// every pass, and the payload streams are gathered by that index once at the
+// end, so device memory sees one read and one write of each word and the
+// shared memory need does not depend on the payload count.
+//
+// What bounds it on this card is not device bytes (16,384 pairs move 256 KB,
+// under a microsecond at 3.35 TB/s) but the one SM it runs on: the latency
+// of each pass's chain of steps, most of it in the ranking of step (c),
+// where each row of 32 waits on the leaders' adds of the row before it
+// (after nine ballots), and its shared memory, which sets kSingleMax. So
+// the design shortens the chain: passes of 8 bits (4 for 32 bits, not 8 of
+// 4 bits), the onesweep kernel's ballot ranker (rank_rows: no per-thread
+// counter table to scan), and 32 warps, each ranking only its own rows, so
+// that a warp's chain is about n / 1024 rows; a small sort takes few warps.
+// A gather of 4-byte words from device memory costs one SM a sector a word,
+// so each payload stream is copied whole into the keys' buffer once the keys
+// are written out, gathered there and written in order. Each pass:
+//  (a) every warp takes the contiguous run of items first + 32 j + lane,
+//      holds its keys in registers and counts their digits into its own row
+//      of warp_runs with shared atomics;
+//  (b) a scan over (digit, warp), digit-major, gives each warp its first
+//      rank of each digit;
+//  (c) the warp ranks its rows in order, kRankRows at a time, and writes
+//      each key (from its registers) and its source index (from the other
+//      index buffer) to its rank. The order is (digit, warp, row, lane),
+//      input order within a digit, so the pass is stable. Every key was read
+//      in (a), so the keys are rewritten in place; the index is read here,
+//      so it has two buffers. Each warp then zeroes its row of warp_runs.
 __global__ void __launch_bounds__(kSingleThreads)
-    sort_single_tile_kernel(Streams s, int n, BitPositions pos) {
-  extern __shared__ int smem_single[];
+    sort_single_tile_kernel(Streams s, int n, PassDigits plan) {
+  extern __shared__ __align__(16) uint32_t smem_single[];
+  uint32_t* keys = smem_single;                                       // [kSingleMax]
+  uint16_t* index = reinterpret_cast<uint16_t*>(keys + kSingleMax);   // [2][kSingleMax]
+  int* warp_runs = reinterpret_cast<int*>(index + 2 * kSingleMax);    // [kSingleWarps][kMaxBins]
   __shared__ const uint32_t* s_in[kMaxStreams];
   __shared__ uint32_t* s_out[kMaxStreams];
-  __shared__ int s_bit[kMaxPositions];
-  __shared__ int warp_sums[kSingleThreads / 32 + 1];
-  __shared__ int bin_start[kSingleBins + 1];
-  uint32_t* keys = reinterpret_cast<uint32_t*>(smem_single);                   // padded(kSingleMax)
-  uint16_t* index = reinterpret_cast<uint16_t*>(keys + padded(kSingleMax));   // padded(kSingleMax)
-  int* counters = reinterpret_cast<int*>(index + padded(kSingleMax));          // kSingleBins * threads
-  stage_args(s, pos, s_in, s_out, s_bit);
+  __shared__ Digit s_digit[kMaxPasses];
+  __shared__ int warp_sums[kSingleWarps + 1];
 
   const int t = threadIdx.x;
-  for (int i = t; i < n; i += kSingleThreads) {
-    keys[padded(i)] = s_in[0][i];
-    index[padded(i)] = static_cast<uint16_t>(i);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) {  // the launch arguments indexed at run time, with static indices
+#pragma unroll
+    for (int j = 0; j < kMaxStreams; ++j) {
+      s_in[j] = s.in[j];
+      s_out[j] = s.out[j];
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p) s_digit[p] = plan.pass[p];
   }
+  for (int i = t; i < kSingleWarps * kMaxBins; i += kSingleThreads) warp_runs[i] = 0;
+  load_words(s.in[0], keys, n);
+  for (int i = t; i < n; i += kSingleThreads) index[i] = static_cast<uint16_t>(i);
   __syncthreads();
 
-  const int first = t * kSingleItems;
-  const int nvalid = max(0, min(kSingleItems, n - first));
-  for (int p0 = 0; p0 < pos.count; p0 += kSinglePassBits) {
-    const int nbits = min(kSinglePassBits, pos.count - p0);
+  // rows of 32 items per warp, in whole chunks of kRankRows, so that no warp
+  // ranks an empty row and a small sort takes few warps
+  const int rows = (n + kSingleThreads * kRankRows - 1) / (kSingleThreads * kRankRows) * kRankRows;
+  const int first = warp * rows * 32;
+  int* runs = warp_runs + warp * kMaxBins;
+  for (int p = 0; p < plan.count; ++p) {
+    const Digit digit = s_digit[p];
+    const uint16_t* src = index + (p & 1) * kSingleMax;
+    uint16_t* dst = index + ((p + 1) & 1) * kSingleMax;
+    // (a)
     uint32_t key[kSingleItems];
-    uint32_t digit[kSingleItems];
-    int rank[kSingleItems];
 #pragma unroll
     for (int j = 0; j < kSingleItems; ++j) {
-      key[j] = j < nvalid ? keys[padded(first + j)] : 0u;
-      digit[j] = j < nvalid ? digit_of(key[j], s_bit + p0, nbits) : 0u;
-      rank[j] = 0;
-    }
-    rank_blocked<kSingleThreads, kSingleItems>(digit, nvalid, 1 << nbits, counters, warp_sums,
-                                               bin_start, rank);
-    uint16_t src[kSingleItems];
-#pragma unroll
-    for (int j = 0; j < kSingleItems; ++j) src[j] = j < nvalid ? index[padded(first + j)] : 0;
-    __syncthreads();  // every index entry is read before any is overwritten
-#pragma unroll
-    for (int j = 0; j < kSingleItems; ++j) {
-      if (j < nvalid) {
-        keys[padded(rank[j])] = key[j];
-        index[padded(rank[j])] = src[j];
+      const int i = first + 32 * j + lane;
+      key[j] = 0;
+      if (j < rows && i < n) {
+        key[j] = keys[i];
+        atomicAdd(&runs[digit.of(key[j])], 1);
       }
     }
     __syncthreads();
+    // (b) thread t < bins sums digit t over the warps, then places each warp
+    const bool owns_digit = t < (1 << digit.nbits);
+    int count = 0;
+    if (owns_digit) {
+#pragma unroll 8
+      for (int w = 0; w < kSingleWarps; ++w) count += warp_runs[w * kMaxBins + t];
+    }
+    int total;
+    int run = block_exclusive_sum<kSingleThreads>(count, warp_sums, &total);
+    if (owns_digit) {
+#pragma unroll 8
+      for (int w = 0; w < kSingleWarps; ++w) {
+        const int c = warp_runs[w * kMaxBins + t];
+        warp_runs[w * kMaxBins + t] = run;
+        run += c;
+      }
+    }
+    __syncthreads();
+    // (c)
+#pragma unroll
+    for (int c = 0; c < kSingleItems; c += kRankRows) {
+      if (c < rows) {
+        uint32_t dig[kRankRows];
+#pragma unroll
+        for (int j = 0; j < kRankRows; ++j) {
+          const int i = first + 32 * (c + j) + lane;
+          dig[j] = c + j < rows && i < n ? digit.of(key[c + j]) : kMaxBins;
+        }
+        rank_rows(dig, digit.nbits, runs, [&](int j, int rank) {
+          keys[rank] = key[c + j];
+          dst[rank] = src[first + 32 * (c + j) + lane];
+        });
+      }
+    }
+    for (int d = lane; d < kMaxBins; d += 32) runs[d] = 0;  // after rank_rows' last __syncwarp
+    __syncthreads();
   }
 
-  for (int i = t; i < n; i += kSingleThreads) s_out[0][i] = keys[padded(i)];
-  for (int st = 1; st < s.count; ++st) {
-    const uint32_t* in = s_in[st];
+  const uint16_t* order = index + (plan.count & 1) * kSingleMax;
+  for (int i = t; i < n; i += kSingleThreads) s_out[0][i] = keys[i];
+  for (int st = 1; st < s.count; ++st) {  // each payload through the keys' buffer
+    __syncthreads();
+    load_words(s_in[st], keys, n);
+    __syncthreads();
     uint32_t* out = s_out[st];
-    for (int i = t; i < n; i += kSingleThreads) out[i] = in[index[padded(i)]];
+    for (int i = t; i < n; i += kSingleThreads) out[i] = keys[order[i]];
   }
 }
 
 constexpr int onesweep_smem(int nstreams) {
   return nstreams * kTile * 4 + kTile * 2 + kTileWarps * kMaxBins * 4;
 }
-constexpr int kSingleTileSmem =
-    padded(kSingleMax) * 4 + padded(kSingleMax) * 2 + kSingleBins * kSingleThreads * 4;
+constexpr int kSingleTileSmem = kSingleMax * 4 + 2 * kSingleMax * 2 + kSingleWarps * kMaxBins * 4;
 
 bool fill_streams(Streams* s, const void* const* in, void* const* out, int count) {
   if (in == nullptr || out == nullptr || count < 1 || count > kMaxStreams) return false;
@@ -506,17 +523,6 @@ bool fill_streams(Streams* s, const void* const* in, void* const* out, int count
     if (i < count && (s->in[i] == nullptr || s->out[i] == nullptr)) return false;
   }
   s->count = count;
-  return true;
-}
-
-bool fill_positions(BitPositions* p, const int* bits, int count, int max_count) {
-  if (bits == nullptr || count < 1 || count > max_count) return false;
-  for (int i = 0; i < kMaxPositions; ++i) {
-    const int b = i < count ? bits[i] : 0;
-    if (b < 0 || b > 31) return false;
-    p->bit[i] = b;
-  }
-  p->count = count;
   return true;
 }
 
@@ -533,6 +539,36 @@ bool fill_digit(Digit* d, const int* bits, int nbits) {
   return true;
 }
 
+// bits: the passes' key bits one after another, nbits[p] of them for pass p.
+bool fill_plan(PassDigits* plan, const int* bits, const int* nbits, int npasses) {
+  if (nbits == nullptr || npasses < 1 || npasses > kMaxPasses) return false;
+  plan->count = npasses;
+  for (int p = 0, at = 0; p < kMaxPasses; ++p) {
+    if (p < npasses) {
+      if (!fill_digit(&plan->pass[p], bits + at, nbits[p])) return false;
+      at += nbits[p];
+    } else {
+      plan->pass[p] = plan->pass[0];
+    }
+  }
+  return true;
+}
+
+// Lets K3 take kSingleTileSmem of dynamic shared memory: once per device
+// and process, not on every launch.
+cudaError_t allow_single_tile_smem() {
+  static std::atomic<unsigned long long> done{0};  // one bit per device
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(sort_single_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSingleTileSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 int num_tiles(int n) { return static_cast<int>((static_cast<long long>(n) + kTile - 1) / kTile); }
 
 }  // namespace
@@ -545,22 +581,12 @@ int glu_sort_max_streams() { return kMaxStreams; }
 int glu_sort_bins() { return kMaxBins; }
 const char* glu_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// bits: the passes' key bits one after another, nbits[p] of them for pass p.
+// bits, nbits, npasses: the passes, as fill_plan takes them.
 int glu_digit_histograms(const void* keys, int n, const int* bits, const int* nbits, int npasses,
                          int* hist, void* stream) {
   PassDigits plan;
-  if (keys == nullptr || n < 1 || hist == nullptr || nbits == nullptr || npasses < 1 ||
-      npasses > kMaxPasses)
+  if (keys == nullptr || n < 1 || hist == nullptr || !fill_plan(&plan, bits, nbits, npasses))
     return cudaErrorInvalidValue;
-  plan.count = npasses;
-  for (int p = 0, at = 0; p < kMaxPasses; ++p) {
-    if (p < npasses) {
-      if (!fill_digit(&plan.pass[p], bits + at, nbits[p])) return cudaErrorInvalidValue;
-      at += nbits[p];
-    } else {
-      plan.pass[p] = plan.pass[0];
-    }
-  }
   int device, sms;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -591,19 +617,18 @@ int glu_onesweep_pass(const void* const* in, void* const* out, int nstreams, int
   return cudaGetLastError();
 }
 
+// bits, nbits, npasses: the passes, as fill_plan takes them.
 int glu_sort_single_tile(const void* const* in, void* const* out, int nstreams, int n,
-                         const int* bits, int nbits, void* stream) {
+                         const int* bits, const int* nbits, int npasses, void* stream) {
   Streams s;
-  BitPositions pos;
+  PassDigits plan;
   if (n < 1 || n > kSingleMax || !fill_streams(&s, in, out, nstreams) ||
-      !fill_positions(&pos, bits, nbits, kMaxPositions))
+      !fill_plan(&plan, bits, nbits, npasses))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sort_single_tile_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSingleTileSmem);
+  const cudaError_t err = allow_single_tile_smem();
   if (err != cudaSuccess) return err;
   sort_single_tile_kernel<<<1, kSingleThreads, kSingleTileSmem,
-                            static_cast<cudaStream_t>(stream)>>>(s, n, pos);
+                            static_cast<cudaStream_t>(stream)>>>(s, n, plan);
   return cudaGetLastError();
 }
 

@@ -29,15 +29,21 @@ def on_cuda(t: torch.Tensor) -> bool:
     return True
 
 
+_checked_geometry: set = set()  # (library, geometry) pairs already checked
+
+
 def kernels(**geometry: int) -> ctypes.CDLL:
     """The kernel library (built on first use), with the compile-time
-    geometry the caller relies on checked: each keyword names a C entry
-    glu_<name>() whose value must equal the keyword's."""
+    geometry the caller relies on checked once per library: each keyword
+    names a C entry glu_<name>() whose value must equal the keyword's."""
     from .. import _build
 
     lib = _build.load_library()
-    built = {name: getattr(lib, f"glu_{name}")() for name in geometry}
-    check_state(built == geometry, "kernel geometry %s differs from the wrapper's %s", built, geometry)
+    key = (id(lib), tuple(sorted(geometry.items())))
+    if key not in _checked_geometry:
+        built = {name: getattr(lib, f"glu_{name}")() for name in geometry}
+        check_state(built == geometry, "kernel geometry %s differs from the wrapper's %s", built, geometry)
+        _checked_geometry.add(key)
     return lib
 
 

@@ -20,7 +20,8 @@ written anew from what it computes (csrc/radix_sort.cu):
         counts, and writes every stream to its final place: each word is
         read once and written once (K1 + glue + K2 of the TPU engine, fused).
   An input of at most SINGLE_TILE_MAX elements instead takes
-    K3 `sort_single_tile` -- one CTA runs every pass in shared memory.
+    K3 `sort_single_tile` -- one CTA runs every pass (the same passes of up
+        to 8 bits) in shared memory.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
@@ -34,6 +35,7 @@ stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,7 +54,7 @@ MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
 # the CPU tests shrink them to reach many tiles, ragged tails and the
 # single-tile path at tiny n.
 TILE = 6144
-SINGLE_TILE_MAX = 16384
+SINGLE_TILE_MAX = 24576
 MAX_STREAMS = 8
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
@@ -118,6 +120,14 @@ def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
+def _plan_args(groups) -> tuple:
+    """The passes over groups of key bits (LSB-first) in the form that
+    glu_digit_histograms and glu_sort_single_tile take: every pass's bit
+    positions one after another, the bit count of each pass, the pass
+    count."""
+    return _ints([b for g in groups for b in g]), _ints([len(g) for g in groups]), len(groups)
+
+
 def _digits(words: torch.Tensor, positions) -> torch.Tensor:
     """int64 digit of each word formed by the bits at `positions` (LSB-first)."""
     d = torch.zeros(words.shape, dtype=torch.int64, device=words.device)
@@ -149,10 +159,7 @@ def digit_histograms(keys: torch.Tensor, groups) -> torch.Tensor:
     if not on_cuda(keys):
         return digit_histograms_ref(keys, groups)
     hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
-    _launch(
-        "glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(),
-        _ints([b for g in groups for b in g]), _ints([len(g) for g in groups]), len(groups), hist.data_ptr(),
-    )
+    _launch("glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(), *_plan_args(groups), hist.data_ptr())
     digit_histograms_launches += 1
     return hist
 
@@ -253,18 +260,30 @@ def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Ten
 
 
 def sort_single_tile_ref(keys: torch.Tensor, payloads, positions):
-    """Plain version of K3: one stable sort on the digit of all positions."""
-    order = torch.sort(_digits(keys, positions), stable=True).indices
+    """Plain version of K3, pass by pass as the kernel runs them: one stable
+    sort on the digit of each group of _pass_groups, LSB-first."""
+    order = torch.arange(keys.numel(), device=keys.device)
+    for g in _pass_groups(positions):
+        order = order[torch.sort(_digits(keys[order], g), stable=True).indices]
     return keys[order], [v[order] for v in payloads]
+
+
+@functools.lru_cache(maxsize=64)
+def _single_tile_plan(positions: tuple) -> tuple:
+    """K3's checked bit positions and the C form of their passes, made once
+    per tuple of positions: on the host they cost as much as the launch."""
+    positions = _check_positions(positions, 32)
+    return positions, _plan_args(_pass_groups(positions))
 
 
 def sort_single_tile(keys: torch.Tensor, payloads, positions):
     """K3 (replaces _pallas_sort.py::_single_block_sort): the whole LSD sort
-    by the bits at `positions` (1-32 of them) of at most SINGLE_TILE_MAX
-    elements in one launch. Returns (keys, list of payloads)."""
+    by the bits at `positions` (1-32 of them, in passes of up to 8 bits) of
+    at most SINGLE_TILE_MAX elements in one launch. Returns (keys, list of
+    payloads)."""
     global sort_single_tile_launches
     streams = _check_streams(keys, payloads)
-    positions = _check_positions(positions, 32)
+    positions, plan = _single_tile_plan(tuple(positions))
     check_argument(
         keys.numel() <= SINGLE_TILE_MAX,
         "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, keys.numel(),
@@ -274,7 +293,7 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions):
     outs = [torch.empty_like(s) for s in streams]
     _launch(
         "glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams),
-        keys.numel(), _ints(positions), len(positions),
+        keys.numel(), *plan,
     )
     sort_single_tile_launches += 1
     return outs[0], outs[1:]

@@ -97,16 +97,36 @@ def test_digit_histograms_every_pass_at_once(dev):
     _assert_same([got[0], *got[1]], [want[0], *want[1]])
 
 
-@pytest.mark.parametrize("positions", [tuple(range(32)), (31, 0, 17, 5, 9)])
+@pytest.mark.parametrize("positions", [tuple(range(32)), tuple(range(12)), tuple(range(24, 32)), (31, 0, 17, 5, 9)])
 @pytest.mark.parametrize("n", [1, 2, 1000, 10000, cs.SINGLE_TILE_MAX])
 def test_sort_single_tile_matches_plain(dev, n, positions):
-    for kind in ("uniform", "mod3"):
+    # 4 passes of 8 bits, 8 + 4, the top byte, 5 scattered bits; 0, 1 and 7
+    # payload streams (the most a sort takes)
+    for kind in ("uniform", "constant", "mod3"):
         keys = _words(kind, n, dev)
-        for streams in (0, 1):
-            pays = [torch.arange(n, dtype=torch.int32, device=dev)][:streams]
+        for streams in (0, 1, 7):
+            pays = [torch.arange(n, dtype=torch.int32, device=dev)]
+            pays += [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(6)]
+            pays = pays[:streams]
+            before = cs.launch_counts()["sort_single_tile"]
             got = cs.sort_single_tile(keys, pays, positions)
+            assert cs.launch_counts()["sort_single_tile"] - before == 1
             want = cs.sort_single_tile_ref(keys, pays, positions)
             _assert_same([got[0], *got[1]], [want[0], *want[1]])
+
+
+@pytest.mark.parametrize("n,calls", [(cs.SINGLE_TILE_MAX, (0, 0, 1)), (cs.SINGLE_TILE_MAX + 1, (1, 4, 0))])
+def test_radix_sort_at_the_single_tile_limit(dev, n, calls):
+    # K3 alone up to its limit, one element more takes 1 histogram + 4 passes
+    keys = _words("uniform", n, dev).view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    before = cs.launch_counts()
+    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals)
+    after = cs.launch_counts()
+    ref_k, ref_v = glu_tpu_torch.radix_sort(keys, vals, backend="torch")
+    _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
+                 [ref_k.view(torch.int32), ref_v.view(torch.int32)])
+    assert tuple(after[k] - before[k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile")) == calls
 
 
 @pytest.mark.parametrize("n", [100_003, 1 << 20])

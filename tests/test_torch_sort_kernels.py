@@ -148,20 +148,42 @@ def test_digit_histograms_matches_group_pass_counts(groups, seeded_rng, block_ti
         assert not hist[p, 1 << len(g):].any()
 
 
-@pytest.mark.parametrize("positions,streams", [(tuple(range(32)), 1), (tuple(range(12)), 0)])
+@pytest.mark.parametrize(
+    "positions,streams",
+    [(tuple(range(32)), 1), (tuple(range(12)), 0), (tuple(range(12)), 1), ((31, 0, 17, 5, 9), 1),
+     (tuple(range(32)), 3)],
+)
 def test_sort_single_tile_matches_single_block_sort(positions, streams, seeded_rng):
+    # 32 bits (4 passes of 8), 12 bits (8 + 4), 5 scattered bits out of
+    # order (one pass); 0, 1 and 3 payload streams
     rng = seeded_rng(51)
     n = BLOCK - 77
     keys = _keys(rng, "uniform", n)
-    vals = np.arange(n, dtype=np.uint32)
+    vals = [np.arange(n, dtype=np.uint32)] + [rng.sample_int_vector(n, 0, 0xFFFFFFFF) for _ in range(streams - 1)]
+    vals = vals[:streams]
     jk, jvs = ps._single_block_sort(
-        _jax_2d(keys, 0xFFFFFFFF, R), [_jax_2d(vals, 0, R)][:streams], R, positions, True
+        _jax_2d(keys, 0xFFFFFFFF, R), [_jax_2d(v, 0, R) for v in vals], R, positions, True
     )
-    tk, tvs = cs.sort_single_tile(_t(keys), [_t(vals)][:streams], positions)
+    tk, tvs = cs.sort_single_tile(_t(keys), [_t(v) for v in vals], positions)
     np.testing.assert_array_equal(_u32(tk), np.asarray(jk).reshape(-1)[:n])
-    assert len(tvs) == streams
+    assert len(tvs) == len(jvs) == streams
     for tv, jv in zip(tvs, jvs):
         np.testing.assert_array_equal(_u32(tv), np.asarray(jv).reshape(-1)[:n])
+
+
+@pytest.mark.parametrize(
+    "positions,nbits",
+    [(tuple(range(32)), [8, 8, 8, 8]), (tuple(range(12)), [8, 4]), ((31, 0, 17, 5, 9), [5]),
+     (tuple(range(24, 32)), [8])],
+)
+def test_plan_args_follow_the_passes(positions, nbits):
+    # the C form of a sort's passes that digit_histograms and K3 both take:
+    # every pass's bits one after another (LSB-first), the bits per pass,
+    # the pass count; passes of up to 8 bits in the order given
+    bits, per_pass, npasses = cs._plan_args(cs._pass_groups(positions))
+    assert list(bits) == list(positions)
+    assert list(per_pass) == nbits
+    assert npasses == len(nbits)
 
 
 @pytest.mark.parametrize(

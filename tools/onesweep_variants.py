@@ -45,7 +45,7 @@ VARIANTS = {
         ("radix_sort.cu", "constexpr int kTileThreads = 384;", "constexpr int kTileThreads = 512;"),
     ],
     "ranker: __match_any_sync": [
-        ("radix_sort.cu", "peers[j] = match_digit(dig[j], digit.nbits);",
+        ("radix_sort.cu", "peers[j] = match_digit(dig[j], nbits);",
          "peers[j] = __match_any_sync(0xffffffffu, dig[j]) & (dig[j] < kMaxBins ? ~0u : 0u);"),
     ],
     "status words: release stores, acquire loads": [
