@@ -25,15 +25,18 @@ Phases, each of which raises (exit code 1) on any failure:
   6. the scan and reduce kernels (exclusive_scan K4, reduce K5) against
      their plain torch versions on the card, for sum, mul, min and max on
      int32, uint32, float32 and float64, at ragged, partitioned, vector and
-     the sort table's shapes and at the main path's 2**28 u32; integers bit
-     for bit, floats at rtol 1e-4, atol 1e-3;
+     the sort table's shapes, at the main path's 2**28 u32 and at 2**26 f64
+     SUM (K4's look-back over 8K tiles of 8-byte status); integers bit for
+     bit, floats at rtol 1e-4, atol 1e-3; and K4's f32 SUM and f64 MUL at
+     (1, 2**22) and (64, 3 * TILE + 5), launched 5 times, bit-identical from
+     run to run;
   7. the scan and reduce main path: exclusive_scan, inclusive_scan and
      reduce of 2**28 u32, reduce of 2**28 f32 (MAX), exclusive_scan of 2**24
      f32, segmented_reduce of 2**24 u32 over 10**4 uneven segments, and the
      BlellochScan and Reduce classes on DeviceBuffers made on the default
      device, each against backend="torch" or an exact reference; the launch
-     counts, set to 0 before and read after, match the design (K4 3
-     launches per multi-tile scan, K5 2 per reduce);
+     counts, set to 0 before and read after, match the design (K4 1 launch
+     per scan, K5 2 per reduce);
   8. timings (CUDA events, medians), for the record only, and a per-launch
      profile (torch.profiler) of one 2**28 sort, scan and reduce; K3's
      kernel alone (profiler), its wrapper, its host time per call and
@@ -349,6 +352,7 @@ def main() -> int:
     fold_dtypes = (torch.int32, torch.uint32, torch.float32, torch.float64)
     fold_cases = [(shape, dt, op) for shape in fold_shapes for dt in fold_dtypes for op in Op]
     fold_cases.append(((1, MAIN_N), torch.uint32, Op.SUM))  # the main path's shape
+    fold_cases.append(((1, 1 << 26), torch.float64, Op.SUM))  # K4's 8-byte status over 8K tiles
     for shape, dt, op in fold_cases:
         if dt.is_floating_point and op == Op.MUL and shape[1] > 100_003:
             shape = (shape[0], 100_003)  # a long float product drifts by its rounding
@@ -358,10 +362,21 @@ def main() -> int:
         check_close("exclusive_scan", label, csc.exclusive_scan_partitions(x, op),
                     csc.exclusive_scan_partitions_ref(x, op))
         del x
+    # which tile a look-back stops at depends on timing; the floats must not
+    rerun_cases = [(shape, dt, op) for shape in ((1, 1 << 22), (64, 3 * csc.TILE + 5))
+                   for dt, op in ((torch.float32, Op.SUM), (torch.float64, Op.MUL))]
+    for shape, dt, op in rerun_cases:
+        x = fold_input(dt, op, shape)
+        first = csc.exclusive_scan_partitions(x, op).view(torch.int8)
+        for _ in range(4):
+            if not torch.equal(csc.exclusive_scan_partitions(x, op).view(torch.int8), first):
+                raise AssertionError(f"exclusive_scan {op.name} {dt} {shape}: differs from run to run")
+        del x, first
     torch.cuda.synchronize()
     print(f"K4/K5 vs plain versions: {len(fold_cases)} cases each, integers bit-identical, floats within "
           f"rtol {FLOAT_TOL['rtol']} atol {FLOAT_TOL['atol']}; max_abs_err exclusive_scan "
-          f"{max_err['exclusive_scan']!r} reduce {max_err['reduce']!r} ({time.perf_counter() - t0:.1f} s)")
+          f"{max_err['exclusive_scan']!r} reduce {max_err['reduce']!r}; K4 bit-identical over 5 runs in "
+          f"{len(rerun_cases)} float cases ({time.perf_counter() - t0:.1f} s)")
 
     # -- 7. the scan and reduce main path at full width -------------------------
     import numpy as np
@@ -388,9 +403,9 @@ def main() -> int:
     u = as_u32(words(MAIN_N, "uniform"))
     csc.reset_launch_counts()
     cr.reset_launch_counts()
-    check_exact("exclusive_scan 2^28 u32 SUM", slice_call("exclusive_scan", lambda: glu_tpu_torch.exclusive_scan(u), (3, 0)),
+    check_exact("exclusive_scan 2^28 u32 SUM", slice_call("exclusive_scan", lambda: glu_tpu_torch.exclusive_scan(u), (1, 0)),
                 glu_tpu_torch.exclusive_scan(u, backend="torch"))
-    check_exact("inclusive_scan 2^28 u32 SUM", slice_call("inclusive_scan", lambda: glu_tpu_torch.inclusive_scan(u), (3, 0)),
+    check_exact("inclusive_scan 2^28 u32 SUM", slice_call("inclusive_scan", lambda: glu_tpu_torch.inclusive_scan(u), (1, 0)),
                 glu_tpu_torch.inclusive_scan(u, backend="torch"))
     check_exact("reduce 2^28 u32 SUM", slice_call("reduce", lambda: glu_tpu_torch.reduce(u), (0, 2)),
                 glu_tpu_torch.reduce(u, backend="torch"))
@@ -400,7 +415,7 @@ def main() -> int:
                 torch.amax(f))
     del f
     g = torch.rand(1 << 24, dtype=torch.float32, device=dev, generator=gen)
-    exc = slice_call("exclusive_scan f32", lambda: glu_tpu_torch.exclusive_scan(g), (3, 0))
+    exc = slice_call("exclusive_scan f32", lambda: glu_tpu_torch.exclusive_scan(g), (1, 0))
     exact = torch.cumsum(g.double(), 0) - g.double()
     err = float((exc.double() - exact).abs().max())
     if not torch.allclose(exc.double(), exact, **FLOAT_TOL):
@@ -412,7 +427,7 @@ def main() -> int:
     v = as_u32(words(n_seg, "uniform"))
     cuts = torch.sort(torch.randint(0, n_seg + 1, (9_999,), device=dev, generator=gen)).values
     offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), cuts, torch.full((1,), n_seg, device=dev)])
-    seg = slice_call("segmented_reduce", lambda: glu_tpu_torch.segmented_reduce(v, offs), (3, 0))
+    seg = slice_call("segmented_reduce", lambda: glu_tpu_torch.segmented_reduce(v, offs), (1, 0))
     prefix = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(as_i64(v), 0)])
     want_seg = ((prefix[offs[1:]] - prefix[offs[:-1]]) & 0xFFFFFFFF).to(torch.int64)
     if not torch.equal(as_i64(seg), want_seg):
@@ -424,7 +439,7 @@ def main() -> int:
     buf = glu_tpu_torch.DeviceBuffer(host)  # the default device: the card
     if buf.device.type != "cuda":
         raise AssertionError(f"DeviceBuffer(numpy) went to {buf.device}, not the card")
-    scanned = slice_call("BlellochScan", lambda: glu_tpu_torch.BlellochScan(DataType.UINT)(buf, 1 << 18, 4), (3, 0))
+    scanned = slice_call("BlellochScan", lambda: glu_tpu_torch.BlellochScan(DataType.UINT)(buf, 1 << 18, 4), (1, 0))
     want_host = np.concatenate([np.cumsum(p, dtype=np.uint32) - p for p in host.reshape(4, -1)])
     if not (buf.get_data() == want_host).all() or scanned.data_ptr() != buf.data.data_ptr():
         raise AssertionError("BlellochScan on a DeviceBuffer: not the numpy exclusive scan, in place")
@@ -562,6 +577,7 @@ def main() -> int:
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) {tag}")
     api = {
         "exclusive_scan": turns(lambda: glu_tpu_torch.exclusive_scan(u), lambda: glu_tpu_torch.exclusive_scan(u, backend="torch"), reps=FOLD_REPS),
+        "inclusive_scan": turns(lambda: glu_tpu_torch.inclusive_scan(u), lambda: glu_tpu_torch.inclusive_scan(u, backend="torch"), reps=FOLD_REPS),
         "reduce": turns(lambda: glu_tpu_torch.reduce(u), lambda: glu_tpu_torch.reduce(u, backend="torch"), reps=FOLD_REPS),
     }
     for name, (k_ms, t_ms) in api.items():

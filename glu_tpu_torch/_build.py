@@ -121,7 +121,7 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_sort_bins",
-                 "glu_fold_tile"):
+                 "glu_fold_tile", "glu_scan_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -134,7 +134,7 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr]
     # (input, parts, len, ctas, dtype, op, output, stream)
     lib.glu_reduce_pass.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, ptr, ptr]
-    # (input, output, parts, len, dtype, op, carries or None, stream)
+    # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_sort_single_tile", "glu_reduce_pass",
                  "glu_scan_pass"):

@@ -24,6 +24,12 @@ constexpr int kFoldItems = 16;
 constexpr int kFoldTile = kFoldThreads * kFoldItems;  // 4096 elements per tile
 constexpr int kFoldWarps = kFoldThreads / 32;
 
+// VEC values of T loaded or stored as one access (16 bytes for VEC = 16 / sizeof(T)).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Vec {
+  T v[VEC];
+};
+
 template <typename T>
 __device__ __forceinline__ bool is_nan(T v) {
   return v != v;  // false for every integer
@@ -120,12 +126,13 @@ __device__ T block_fold(T v, T* warp_vals) {
   return v;
 }
 
-// Exclusive scan of one value per thread over the block, in thread order:
-// thread t gets op(v_0 .. v_{t-1}), thread 0 the identity; *total gets the
-// fold of all. warp_vals holds kFoldWarps + 1 values. Ends with a barrier,
-// so the caller may reuse warp_vals at once.
-template <int OP, typename T>
+// Exclusive scan of one value per thread over a block of WARPS warps, in
+// thread order: thread t gets op(v_0 .. v_{t-1}), thread 0 the identity;
+// *total gets the fold of all. warp_vals holds WARPS + 1 values. Ends with a
+// barrier, so the caller may reuse warp_vals at once.
+template <int OP, int WARPS, typename T>
 __device__ T block_exclusive_scan(T v, T* warp_vals, T* total) {
+  static_assert(WARPS >= 1 && WARPS <= 32, "one warp scans the warp totals");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   T inc = v;
@@ -139,7 +146,7 @@ __device__ T block_exclusive_scan(T v, T* warp_vals, T* total) {
   if (lane == 31) warp_vals[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    const T w = lane < kFoldWarps ? warp_vals[lane] : identity<OP, T>();
+    const T w = lane < WARPS ? warp_vals[lane] : identity<OP, T>();
     T s = w;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -148,11 +155,11 @@ __device__ T block_exclusive_scan(T v, T* warp_vals, T* total) {
     }
     T before = __shfl_up_sync(0xffffffffu, s, 1);
     if (lane == 0) before = identity<OP, T>();
-    if (lane < kFoldWarps) warp_vals[lane] = before;
-    if (lane == kFoldWarps - 1) warp_vals[kFoldWarps] = s;
+    if (lane < WARPS) warp_vals[lane] = before;
+    if (lane == WARPS - 1) warp_vals[WARPS] = s;
   }
   __syncthreads();
-  *total = warp_vals[kFoldWarps];
+  *total = warp_vals[WARPS];
   const T result = combine<OP>(warp_vals[warp], exc);
   __syncthreads();
   return result;

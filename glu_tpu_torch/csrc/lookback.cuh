@@ -9,7 +9,9 @@
 // Stores and loads of status words are relaxed atomics at device scope: a
 // reader uses nothing but the one word it loaded, which holds the flag and
 // the count together, so no other memory has to be ordered with it. Release
-// stores and acquire loads would be correct too, and slower (PERF.md).
+// stores and acquire loads would be correct too, and slower (PERF.md). A
+// flag that stands for a value kept elsewhere (the scan's 8-byte values,
+// scan.cu) is stored with release and loaded with acquire semantics instead.
 
 #pragma once
 
@@ -36,6 +38,18 @@ __device__ __forceinline__ unsigned long long read_status(const unsigned long lo
   unsigned long long value;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(value) : "l"(word) : "memory");
   return value;
+}
+
+// A flag whose value was written before it: every store this thread made
+// before the release is visible to a thread whose acquire load sees the flag.
+__device__ __forceinline__ void publish_flag(unsigned long long* word, unsigned long long flag) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(flag) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long read_flag(const unsigned long long* word) {
+  unsigned long long flag;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(flag) : "l"(word) : "memory");
+  return flag;
 }
 
 // Sum of the counts that tiles 0..tile-1 published in the column of status

@@ -6,8 +6,7 @@
 // an (8, 128) accumulator. Here CTAs run in parallel and in no order, so a
 // reduce is two launches of fold_tiles_kernel: per-CTA partials, then the
 // fold of each row's partials. No atomics: mul has none, and a fixed order
-// keeps float results the same from run to run. The K4 scan (scan.cu)
-// takes its tile aggregates from the same entry, with one CTA per tile.
+// keeps float results the same from run to run.
 //
 // Bound by device-memory bytes: each input word is read once, at 3.35 TB/s
 // 0.320 ms for 2^28 u32. So every load is coalesced, 16 bytes a thread
@@ -22,11 +21,6 @@
 namespace {
 
 using namespace glu;
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
 
 // CTA blockIdx.x = p * ctas + c folds tiles c, c + ctas, c + 2 ctas, ... of
 // row p of x and writes its partial to out[blockIdx.x], i.e. out[p][c]. A

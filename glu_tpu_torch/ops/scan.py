@@ -3,12 +3,17 @@ adjacent partitions.
 
 Counterpart of glu_tpu/ops/scan.py (reference glu/BlellochScan.hpp) for
 PyTorch on the GPU. Two backends:
-  - "cuda", K4 of ops/_cuda_scan.py: a reduce-then-scan over tiles, seeded
-    per partition with the operator's identity (on a CPU tensor, its plain
-    torch version);
+  - "cuda", K4 of ops/_cuda_scan.py: one single-pass launch over tiles with
+    decoupled look-back, seeded per partition with the operator's identity
+    (on a CPU tensor, its plain torch version);
   - "torch", the portable path: torch.cumsum / cumprod / cummin / cummax
     with the accumulator pinned to the input's dtype, shifted one slot (the
     counterpart of "xla", scan.py:55-76).
+
+Both write the exact exclusive scan. For float SUM that departs from the
+JAX package, whose `inclusive - x` puts NaN at the slot of an inf input and
+a NaN one slot before its exclusive place; an integer SUM keeps
+`inclusive - x`, which is exact in the wrapping ring.
 
 The reference's `num_partitions` batch mode (BlellochScan.hpp:125-138) is
 a segmented scan over adjacent equal-length partitions; (N, C) vector inputs
@@ -61,11 +66,11 @@ def _scan_flat(x: torch.Tensor, num_partitions: int, op: ReduceOperator, backend
         return exclusive_scan_partitions(seg, op).reshape(n)
     seg = _to_work(x, op).reshape(num_partitions, n // num_partitions)
     inc = _cumulate(seg, op, 1)
-    if op == ReduceOperator.SUM:
-        exc = inc - seg
+    if op == ReduceOperator.SUM and not x.dtype.is_floating_point:
+        exc = inc - seg  # exact in the wrapping integer ring
     else:
-        # non-invertible ops: the inclusive scan shifted right one slot, the
-        # identity seeding each partition's slot 0
+        # the inclusive scan shifted right one slot, the identity seeding
+        # each partition's slot 0: the exact exclusive scan, as K4 writes it
         first = torch.full((num_partitions, 1), _work_identity(op, x.dtype), dtype=seg.dtype, device=x.device)
         exc = torch.cat([first, inc[:, :-1]], dim=1)
     return _from_work(exc.reshape(n), op, x.dtype)

@@ -192,6 +192,72 @@ def test_scan_partitions_match_pallas_kernel(op, dtype, monkeypatch, seeded_rng)
         np.testing.assert_array_equal(got, want)
 
 
+def test_plain_k4_carries_are_the_left_fold_of_tile_aggregates():
+    # The kernel's look-back folds the aggregates left to right, so tile j's
+    # carry is ((agg0 + agg1) + ...) + agg[j-1], rounded at every step. With
+    # these f32 aggregates that is 1e8 for every tile past the first, where
+    # the exact sum, or a tree that adds the 3s first, rounds to 100000008.
+    aggs = np.array([1e8, 3, 3, 3, 5], dtype=np.float32)
+    want, run = [np.float32(0)], aggs[0]
+    for a in aggs[1:-1]:
+        want.append(run)
+        run = np.float32(run + a)
+    want.append(run)
+    assert want[-1] == np.float32(1e8) != np.float32(aggs[:-1].astype(np.float64).sum())
+    carries = cs.tile_carries(_t(aggs).reshape(1, -1), ReduceOperator.SUM, 0.0)
+    np.testing.assert_array_equal(to_numpy(carries)[0], np.array(want, dtype=np.float32))
+    # through the plain version: one aggregate per tile, at its first slot,
+    # so the scan at each tile's first slot is that tile's carry
+    x = np.zeros((2, len(aggs) * SMALL_TILE), dtype=np.float32)
+    x[:, ::SMALL_TILE] = aggs
+    out = to_numpy(cs.exclusive_scan_partitions(_t(x), ReduceOperator.SUM))
+    np.testing.assert_array_equal(out[:, ::SMALL_TILE], np.array([want, want], dtype=np.float32))
+
+
+# Non-finite values of a float SUM (fault F1), inside and at the edges of the
+# 64-element tiles: the first slot of a tile, the last one, and an inf and a
+# -inf in different tiles, whose sum is NaN from the slot after the -inf on.
+NON_FINITE = {
+    "nan": [(130, np.nan)],
+    "+inf": [(64, np.inf)],
+    "-inf": [(127, -np.inf)],
+    "+inf then -inf": [(63, np.inf), (300, -np.inf)],
+}
+
+
+@pytest.mark.parametrize("num_partitions", [1, 2])
+@pytest.mark.parametrize("inclusive", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", list(NON_FINITE))
+def test_scan_sum_non_finite_is_exact(case, dtype, inclusive, num_partitions):
+    # Both port backends give the exact scan: NaN from one slot after a NaN
+    # input, inf finite at its own slot in the exclusive scan. The reference
+    # is a float64 cumsum, shifted one slot for the exclusive scan, not the
+    # JAX package, whose backends disagree here (ROADMAP, fault F1).
+    data = np.random.default_rng(21).uniform(0, 1, 700).astype(dtype)
+    for i, v in NON_FINITE[case]:
+        data[i] = v
+    inc = np.cumsum(data.astype(np.float64).reshape(num_partitions, -1), axis=1)
+    want = inc if inclusive else np.concatenate([np.zeros((num_partitions, 1)), inc[:, :-1]], axis=1)
+    want = want.reshape(-1)
+    fn = glu_tpu_torch.inclusive_scan if inclusive else glu_tpu_torch.exclusive_scan
+    for b in PORT_BACKENDS:
+        got = to_numpy(fn(_t(data), num_partitions, backend=b))
+        assert got.dtype == dtype, b
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=b)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3, err_msg=b)
+
+
+def test_scan_sum_inf_example():
+    # [1, 2, inf, 3, 4]: the exclusive value at the inf's slot is finite
+    data = np.array([1, 2, np.inf, 3, 4], dtype=np.float32)
+    for b in PORT_BACKENDS:
+        np.testing.assert_array_equal(to_numpy(glu_tpu_torch.exclusive_scan(_t(data), backend=b)),
+                                      [0, 1, 3, np.inf, np.inf])
+        np.testing.assert_array_equal(to_numpy(glu_tpu_torch.inclusive_scan(_t(data), backend=b)),
+                                      [1, 3, np.inf, np.inf, np.inf])
+
+
 def test_scan_class_requires_power_of_2():
     # test_scan.py:91 (reference BlellochScan.hpp:134)
     from glu_tpu_torch.utils.errors import GluArgumentError

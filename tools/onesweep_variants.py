@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Times design variants of the sort's kernels on one NVIDIA GPU.
+"""Times design variants of the sort's and the scan's kernels on one NVIDIA GPU.
 
     python3 tools/onesweep_variants.py          # from the root of the repository
 
 Each variant is the kernel library, glu_tpu_torch/csrc, as it stands, with a
-few lines of radix_sort.cu or lookback.cuh replaced: another tile shape, another ranker,
-other memory orders on the status words, the payloads loaded later, and two
-diagnostics that drop a step (their output is wrong; they bound that step's
-cost). Every variant is built with nvcc into glu_tpu_torch/_build/variants/
+few lines of radix_sort.cu, lookback.cuh or scan.cu replaced: another tile
+shape, another ranker, other memory orders on the status words, the payloads
+loaded later, two diagnostics that drop a step (their output is wrong; they
+bound that step's cost), and other tiles of the single-pass scan (K4).
+Every variant is built with nvcc into glu_tpu_torch/_build/variants/
 (listed in .gitignore), one nvcc per variant, all at once, and timed with
-CUDA events on 2^28 u32 key/value pairs: one 8-bit onesweep pass (the
-status words' zeroing is timed alone and subtracted) and digit_histograms
-over 4 passes of 8 bits. Each variant's output is checked against the plain
-torch versions. The card's name and power limit come first; one line per
-variant follows. Needs a CUDA device and nvcc; writes nothing else.
+CUDA events on 2^28 u32 key/value pairs: one 8-bit onesweep pass and one
+exclusive scan of the keys (the status words' zeroing is timed alone and
+subtracted from both), and digit_histograms over 4 passes of 8 bits. Each
+variant's output is checked against the plain torch versions. The card's
+name and power limit come first; one line per variant follows, with ptxas's
+registers and spills of the onesweep kernel and of the u32 SUM scan. Needs
+a CUDA device and nvcc; writes nothing else.
 
 The edits name exact text of the sources, so an edit of those lines breaks
 a variant: tests/test_torch_build.py checks on the CPU that every
@@ -68,6 +71,25 @@ VARIANTS = {
     "histogram: 512 threads per CTA": [
         ("radix_sort.cu", "constexpr int kHistThreads = 1024;", "constexpr int kHistThreads = 512;"),
     ],
+    "scan tile 4096 (256 threads x 16)": [
+        ("scan.cu", "constexpr int kScanItems = 32;", "constexpr int kScanItems = 16;"),
+    ],
+    "scan tile 8192 (512 threads x 16)": [
+        ("scan.cu", "constexpr int kScanThreads = 256;", "constexpr int kScanThreads = 512;"),
+        ("scan.cu", "constexpr int kScanItems = 32;", "constexpr int kScanItems = 16;"),
+    ],
+    "scan tile 16384 (256 threads x 64)": [
+        ("scan.cu", "constexpr int kScanItems = 32;", "constexpr int kScanItems = 64;"),
+    ],
+    "scan: at least 4 CTAs per SM": [
+        ("scan.cu", "__launch_bounds__(kScanThreads)", "__launch_bounds__(kScanThreads, 4)"),
+    ],
+    "scan look-back: waits on the window of 32 tiles before it": [
+        ("scan.cu", "constexpr int kWindows = 8;", "constexpr int kWindows = 1;"),
+    ],
+    "scan look-back: walks down 3 windows before it waits": [
+        ("scan.cu", "constexpr int kWindows = 8;", "constexpr int kWindows = 4;"),
+    ],
 }
 
 
@@ -80,6 +102,15 @@ def variant_sources(name: str) -> dict:
             raise ValueError(f"variant {name!r}: {old!r} is not found exactly once in {file}")
         texts[file] = texts[file].replace(old, new)
     return texts
+
+
+def _ptxas(log: str, mangled: str) -> str:
+    """ptxas's registers and spills of the kernel whose mangled name holds `mangled`."""
+    lines = log.splitlines()
+    at = next(i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line)
+    spills = next(line for line in lines[at:] if "spill stores" in line).strip()
+    registers = next(line for line in lines[at:] if "Used" in line).split(":", 1)[1].strip()
+    return f"{registers}; {spills}"
 
 
 def _write_sources(name: str) -> pathlib.Path:
@@ -98,6 +129,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from glu_tpu_torch import _build
+    from glu_tpu_torch.ops import _cuda_scan as csc
     from glu_tpu_torch.ops import _cuda_sort as cs
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,12 +146,10 @@ def main() -> int:
         if rc != 0:
             raise SystemExit(f"variant {name!r} failed to build:\n{out}")
         lib = _build.bind_signatures(ctypes.CDLL(str(so)))
-        lines = out.splitlines()
-        at = next(i for i, line in enumerate(lines) if "Compiling entry" in line and "onesweep_pass_kernel" in line)
-        spills = next(line for line in lines[at:] if "spill stores" in line).strip()
-        registers = next(line for line in lines[at:] if "Used" in line).split(":", 1)[1].strip()
-        report = f"{registers}; {spills}"
-        libs[name] = (lib, lib.glu_sort_tile(), report)
+        report = "; ".join(f"{kernel}: {_ptxas(out, mangled)}" for kernel, mangled in (
+            ("onesweep_pass_kernel", "onesweep_pass_kernel"),
+            ("scan_onepass_kernel<SUM, u32, 4>", "scan_onepass_kernelILi0EjLi4E")))
+        libs[name] = (lib, lib.glu_sort_tile(), lib.glu_scan_tile(), report)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -131,7 +161,9 @@ def main() -> int:
     want_hist = cs.digit_histograms_ref(keys, groups)
     base = (torch.cumsum(want_hist, 1, dtype=torch.int32) - want_hist)[0].contiguous()
     want = cs.onesweep_pass_ref(keys, [vals], pos, base)
+    want_scan = torch.cumsum(keys, 0, dtype=torch.int32) - keys  # u32 sums as int32 words: exact
     outs = [torch.empty_like(keys), torch.empty_like(vals)]
+    scan_out = torch.empty_like(keys)
     hist = torch.zeros_like(want_hist)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
@@ -149,8 +181,9 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return sorted(times)[REPS // 2]
 
-    for name, (lib, tile, report) in libs.items():
+    for name, (lib, tile, scan_tile, report) in libs.items():
         status = torch.zeros(-(-N // tile) * 256 + 1, dtype=torch.int64, device=dev)
+        scan_status = torch.zeros(csc.status_words(-(-N // scan_tile), torch.uint32), dtype=torch.int64, device=dev)
 
         def one_pass():
             status.zero_()
@@ -166,14 +199,25 @@ def main() -> int:
             if err:
                 raise RuntimeError(f"variant {name!r}: glu_digit_histograms returned cudaError {err}")
 
+        def scan():
+            scan_status.zero_()
+            err = lib.glu_scan_pass(keys.data_ptr(), scan_out.data_ptr(), 1, N, 1, 0, scan_status.data_ptr(),
+                                    stream())  # uint32 (code 1), SUM (0)
+            if err:
+                raise RuntimeError(f"variant {name!r}: glu_scan_pass returned cudaError {err}")
+
         pass_ms = median_ms(one_pass) - median_ms(status.zero_)
         hist_ms = median_ms(histograms) - median_ms(hist.zero_)
+        scan_ms = median_ms(scan) - median_ms(scan_status.zero_)
         one_pass()
         histograms()
-        right = torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1][0]) and torch.equal(hist, want_hist)
+        scan()
+        right = (torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1][0]) and torch.equal(hist, want_hist)
+                 and torch.equal(scan_out, want_scan))
         print(f"{name}: tile {tile}; onesweep_pass {pass_ms:.4f} ms = {N * 16 / pass_ms / 1e6:.0f} GB/s; "
-              f"digit_histograms {hist_ms:.4f} ms; output {'right' if right else 'WRONG'}; "
-              f"onesweep_pass_kernel: {report} [{gpu}]")
+              f"digit_histograms {hist_ms:.4f} ms; exclusive scan (tile {scan_tile}) {scan_ms:.4f} ms; "
+              f"output {'right' if right else 'WRONG'}; "
+              f"{report} [{gpu}]")
     return 0
 
 
