@@ -27,22 +27,30 @@ Phases, each of which raises (exit code 1) on any failure:
      int32, uint32, float32 and float64, at ragged, partitioned, vector and
      the sort table's shapes, at the main path's 2**28 u32 and at 2**26 f64
      SUM (K4's look-back over 8K tiles of 8-byte status); integers bit for
-     bit, floats at rtol 1e-4, atol 1e-3; and K4's f32 SUM and f64 MUL at
-     (1, 2**22) and (64, 3 * TILE + 5), launched 5 times, bit-identical from
-     run to run;
+     bit, floats at rtol 1e-4, atol 1e-3; K5 also on (P, L, C) rows of 2-
+     and 4-vectors, on rows off a 16-byte boundary, on more rows than
+     MAX_CTAS (one CTA a row, no ticket) and at the main path's (1, 2**26,
+     4) u32 SUM and (1, 2**25, 4) f64 MIN, one launch each; and K4's and
+     K5's f32 SUM and f64 MUL (K4 at (1, 2**22) and (64, 3 * TILE + 5), K5 at
+     (1, 2**22) and (1, 2**20, 4)), launched 5 times, bit-identical from run
+     to run;
   7. the scan and reduce main path: exclusive_scan, inclusive_scan and
-     reduce of 2**28 u32, reduce of 2**28 f32 (MAX), exclusive_scan of 2**24
-     f32, segmented_reduce of 2**24 u32 over 10**4 uneven segments, and the
+     reduce of 2**28 u32, reduce of 2**28 f32 (MAX), reduce of (2**26, 4)
+     u32 (SUM) and (2**25, 4) f64 (MIN) vector streams with under 1 MiB
+     allocated (no copy of the 1 GiB input), exclusive_scan of 2**24 f32,
+     segmented_reduce of 2**24 u32 over 10**4 uneven segments, and the
      BlellochScan and Reduce classes on DeviceBuffers made on the default
      device, each against backend="torch" or an exact reference; the launch
      counts, set to 0 before and read after, match the design (K4 1 launch
-     per scan, K5 2 per reduce);
+     per scan, K5 1 per reduce);
   8. timings (CUDA events, medians), for the record only, and a per-launch
-     profile (torch.profiler) of one 2**28 sort, scan and reduce; K3's
-     kernel alone (profiler), its wrapper, its host time per call and
-     radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the crossover
-     table of K3, the histogram + onesweep path and torch.sort(stable) +
-     gather from 1,024 to 65,536 pairs.
+     profile (torch.profiler) of one 2**28 sort, scan and reduce and of the
+     two vector reduces; the vector reduces against torch.sum(x, 0) and
+     torch.amin(x, 0); the host time per call of K5's wrapper and of
+     torch.sum; K3's kernel alone (profiler), its wrapper, its host time per
+     call and radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the
+     crossover table of K3, the histogram + onesweep path and
+     torch.sort(stable) + gather from 1,024 to 65,536 pairs.
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's line, and the one before that the JSON summary of the kernels.
 """
@@ -56,6 +64,9 @@ import time
 
 SEED = 20260
 MAIN_N = 1 << 28
+# the vector reduces of the main path: 1 GiB each, like the 2**28 u32 stream
+VEC_U32 = (MAIN_N // 4, 4)
+VEC_F64 = (MAIN_N // 8, 4)
 K3_N = 16384  # K3's timed shape in the kernels line (its limit before the 8-bit redesign)
 CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536)
 REPS = 3
@@ -84,15 +95,17 @@ def _gpu_line() -> str:
 
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel from ptxas -v: its name with template
-    arguments (OP, type, vector width), registers, shared memory, spills."""
+    arguments (OP, type, vector width, components), registers, shared
+    memory, spills."""
     import re
 
     lines, name, spill = [], None, ""
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)(?:ILi(\d)E(\w)(?:Li(\d+)E)?)?", line)
+        entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)(?:ILi(\d)E(\w)(?:Li(\d+)E)?(?:Li(\d+)E)?)?",
+                          line)
         if entry:
             name = entry.group(1)
-            if entry.group(2):  # template <OP, T[, VEC]>: T mangled as i, j, f or d
+            if entry.group(2):  # template <OP, T[, VEC[, C]]>: T mangled as i, j, f or d
                 name += "<" + ",".join(g for g in entry.groups()[1:] if g) + ">"
         elif "spill" in line:
             spill = "" if " 0 bytes spill stores, 0 bytes spill loads" in line else "; " + line.strip()
@@ -298,6 +311,8 @@ def main() -> int:
     print(f"launch counts over the main path: {launches}")
 
     # -- 6. K4 and K5 against their plain versions -----------------------------
+    import numpy as np
+
     from glu_tpu_torch import DataType, ReduceOperator as Op
     from glu_tpu_torch.ops import _cuda_reduce as cr
     from glu_tpu_torch.ops import _cuda_scan as csc
@@ -353,34 +368,61 @@ def main() -> int:
     fold_cases = [(shape, dt, op) for shape in fold_shapes for dt in fold_dtypes for op in Op]
     fold_cases.append(((1, MAIN_N), torch.uint32, Op.SUM))  # the main path's shape
     fold_cases.append(((1, 1 << 26), torch.float64, Op.SUM))  # K4's 8-byte status over 8K tiles
+    def reduce_once(label: str, x: torch.Tensor, op) -> torch.Tensor:
+        """K5 against its plain version, in one launch."""
+        before = cr.reduce_launches
+        got = cr.reduce_partitions(x, op)
+        if cr.reduce_launches - before != 1:
+            raise AssertionError(f"reduce {label}: {cr.reduce_launches - before} launches, want 1")
+        check_close("reduce", label, got, cr.reduce_partitions_ref(x, op))
+        return got
+
     for shape, dt, op in fold_cases:
         if dt.is_floating_point and op == Op.MUL and shape[1] > 100_003:
             shape = (shape[0], 100_003)  # a long float product drifts by its rounding
         label = f"{op.name} {dt} {shape}"
         x = fold_input(dt, op, shape)
-        check_close("reduce", label, cr.reduce_partitions(x, op), cr.reduce_partitions_ref(x, op))
+        reduce_once(label, x, op)
         check_close("exclusive_scan", label, csc.exclusive_scan_partitions(x, op),
                     csc.exclusive_scan_partitions_ref(x, op))
         del x
-    # which tile a look-back stops at depends on timing; the floats must not
-    rerun_cases = [(shape, dt, op) for shape in ((1, 1 << 22), (64, 3 * csc.TILE + 5))
+    # K5 alone: rows of 2- and 4-vectors, rows off a 16-byte boundary (1-wide
+    # loads), more rows than MAX_CTAS (one CTA a row, no ticket), and the
+    # main path's vector streams as one (1, N, C) row
+    vec_cases = [(shape, dt, op, False) for shape in ((1, 100_003, 2), (3, 4_097, 4), (1_100, 5_000), (2_000, 300, 4))
+                 for dt in fold_dtypes for op in Op]
+    vec_cases += [(shape, dt, op, True) for shape in ((1, 100_003, 4), (2, 5_001, 2)) for dt in fold_dtypes for op in Op]
+    vec_cases += [((1, *VEC_U32), torch.uint32, Op.SUM, False), ((1, *VEC_F64), torch.float64, Op.MIN, False)]
+    for shape, dt, op, unaligned in vec_cases:
+        label = f"{op.name} {dt} {shape}{' unaligned' if unaligned else ''}"
+        if unaligned:
+            x = fold_input(dt, op, (1, int(np.prod(shape)) + 1)).view(-1)[1:].view(shape)
+            assert x.data_ptr() % 16
+        else:
+            x = fold_input(dt, op, shape)
+        reduce_once(label, x, op)
+        del x
+    # which tile a look-back stops at, and which CTA of a row folds K5's
+    # partials, depend on timing; the floats must not
+    rerun_cases = [("exclusive_scan", shape, dt, op) for shape in ((1, 1 << 22), (64, 3 * csc.TILE + 5))
                    for dt, op in ((torch.float32, Op.SUM), (torch.float64, Op.MUL))]
-    for shape, dt, op in rerun_cases:
+    rerun_cases += [("reduce", shape, dt, op) for shape in ((1, 1 << 22), (1, 1 << 20, 4))
+                    for dt, op in ((torch.float32, Op.SUM), (torch.float64, Op.MUL))]
+    kernel_of = {"exclusive_scan": csc.exclusive_scan_partitions, "reduce": cr.reduce_partitions}
+    for name, shape, dt, op in rerun_cases:
         x = fold_input(dt, op, shape)
-        first = csc.exclusive_scan_partitions(x, op).view(torch.int8)
+        first = kernel_of[name](x, op).view(torch.int8)
         for _ in range(4):
-            if not torch.equal(csc.exclusive_scan_partitions(x, op).view(torch.int8), first):
-                raise AssertionError(f"exclusive_scan {op.name} {dt} {shape}: differs from run to run")
+            if not torch.equal(kernel_of[name](x, op).view(torch.int8), first):
+                raise AssertionError(f"{name} {op.name} {dt} {shape}: differs from run to run")
         del x, first
     torch.cuda.synchronize()
-    print(f"K4/K5 vs plain versions: {len(fold_cases)} cases each, integers bit-identical, floats within "
-          f"rtol {FLOAT_TOL['rtol']} atol {FLOAT_TOL['atol']}; max_abs_err exclusive_scan "
-          f"{max_err['exclusive_scan']!r} reduce {max_err['reduce']!r}; K4 bit-identical over 5 runs in "
-          f"{len(rerun_cases)} float cases ({time.perf_counter() - t0:.1f} s)")
+    print(f"K4/K5 vs plain versions: {len(fold_cases)} cases each and {len(vec_cases)} more of K5 (one launch "
+          f"each), integers bit-identical, floats within rtol {FLOAT_TOL['rtol']} atol {FLOAT_TOL['atol']}; "
+          f"max_abs_err exclusive_scan {max_err['exclusive_scan']!r} reduce {max_err['reduce']!r}; "
+          f"bit-identical over 5 runs in {len(rerun_cases)} float cases ({time.perf_counter() - t0:.1f} s)")
 
     # -- 7. the scan and reduce main path at full width -------------------------
-    import numpy as np
-
     def slice_call(label: str, fn, want: tuple):
         """Run fn on the card; its K4 and K5 launches must be `want`."""
         before = (csc.scan_launches, cr.reduce_launches)
@@ -407,11 +449,23 @@ def main() -> int:
                 glu_tpu_torch.exclusive_scan(u, backend="torch"))
     check_exact("inclusive_scan 2^28 u32 SUM", slice_call("inclusive_scan", lambda: glu_tpu_torch.inclusive_scan(u), (1, 0)),
                 glu_tpu_torch.inclusive_scan(u, backend="torch"))
-    check_exact("reduce 2^28 u32 SUM", slice_call("reduce", lambda: glu_tpu_torch.reduce(u), (0, 2)),
+    check_exact("reduce 2^28 u32 SUM", slice_call("reduce", lambda: glu_tpu_torch.reduce(u), (0, 1)),
                 glu_tpu_torch.reduce(u, backend="torch"))
-    del u
+    u4 = u.view(VEC_U32)
+    f4 = torch.rand(VEC_F64, dtype=torch.float64, device=dev, generator=gen) * 2 - 1
+    for label, x, op in (("reduce (2^26, 4) u32 SUM", u4, Op.SUM), ("reduce (2^25, 4) f64 MIN", f4, Op.MIN)):
+        torch.cuda.synchronize()
+        in_use = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = slice_call(label, lambda: glu_tpu_torch.reduce(x, op), (0, 1))
+        extra = torch.cuda.max_memory_allocated() - in_use
+        if extra >= 1 << 20:
+            raise AssertionError(f"{label}: allocated {extra} bytes beyond its input, a copy of it")
+        check_exact(label, got, glu_tpu_torch.reduce(x, op, backend="torch"))
+        print(f"main path {label}: {extra} bytes allocated beyond the {x.numel() * x.element_size()}-byte input")
+    del u, u4, f4, got
     f = torch.rand(MAIN_N, dtype=torch.float32, device=dev, generator=gen)
-    check_exact("reduce 2^28 f32 MAX", slice_call("reduce f32", lambda: glu_tpu_torch.reduce(f, Op.MAX), (0, 2)),
+    check_exact("reduce 2^28 f32 MAX", slice_call("reduce f32", lambda: glu_tpu_torch.reduce(f, Op.MAX), (0, 1)),
                 torch.amax(f))
     del f
     g = torch.rand(1 << 24, dtype=torch.float32, device=dev, generator=gen)
@@ -445,7 +499,7 @@ def main() -> int:
         raise AssertionError("BlellochScan on a DeviceBuffer: not the numpy exclusive scan, in place")
     print("main path BlellochScan(UINT) 4 x 2^18 on a default-device DeviceBuffer: in place, identical to numpy")
     buf = glu_tpu_torch.DeviceBuffer(host)
-    total = slice_call("Reduce", lambda: glu_tpu_torch.Reduce(DataType.UINT, Op.SUM)(buf, 1 << 20), (0, 2))
+    total = slice_call("Reduce", lambda: glu_tpu_torch.Reduce(DataType.UINT, Op.SUM)(buf, 1 << 20), (0, 1))
     if not int(total) == int(buf.get_data()[0]) == int(host.sum(dtype=np.uint32)):
         raise AssertionError("Reduce on a DeviceBuffer: not the numpy sum at buffer[0]")
     print("main path Reduce(UINT, SUM) 2^20 on a default-device DeviceBuffer: buffer[0] is the numpy sum")
@@ -582,11 +636,29 @@ def main() -> int:
     }
     for name, (k_ms, t_ms) in api.items():
         print(f"time glu_tpu_torch.{name} (2^28 u32 SUM): backend cuda {k_ms:.4f} ms, backend torch {t_ms:.4f} ms {tag}")
+    for label, fn in (("K5 wrapper reduce_partitions (1, 2^28) u32 SUM", lambda: cr.reduce_partitions(u2, Op.SUM)),
+                      ("glu_tpu_torch.reduce 2^28 u32 SUM", lambda: glu_tpu_torch.reduce(u)),
+                      ("torch.sum(int32) 2^28", lambda: torch.sum(w32, dtype=torch.int32))):
+        print(f"host {label}: {host_us(fn):.2f} us per call {tag}")
     for label, fn in (("exclusive_scan", lambda: csc.exclusive_scan_partitions(u2, Op.SUM)),
                       ("reduce", lambda: cr.reduce_partitions(u2, Op.SUM))):
         for line in _profile_kernels(torch, fn):
             print(f"profile {label} (2^28 u32 SUM): {line} {tag}")
-    del u, u2, w32
+    u4, w4 = u.view(VEC_U32), w32.view(VEC_U32)
+    f4 = torch.rand(VEC_F64, dtype=torch.float64, device=dev, generator=gen)
+    for label, fn, lib_fn, lib_name in (
+            ("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4), lambda: torch.sum(w4, 0, dtype=torch.int32),
+             "torch.sum(x, 0, dtype=int32)"),
+            ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN), lambda: torch.amin(f4, 0),
+             "torch.amin(x, 0)")):
+        k_ms, t_ms = turns(fn, lib_fn, reps=FOLD_REPS)
+        print(f"time glu_tpu_torch.reduce {label}: {k_ms:.4f} ms, {lib_name} {t_ms:.4f} ms, "
+              f"bound {bounds['reduce'][0]:.4f} ms (bytes) {tag}")
+    for label, fn in (("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4)),
+                      ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN))):
+        for line in _profile_kernels(torch, fn):
+            print(f"profile glu_tpu_torch.reduce ({label}): {line} {tag}")
+    del u, u2, w32, u4, w4, f4
 
     kernels = {  # name: (source, TPU kernel it replaces)
         "digit_histograms": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:256"),

@@ -101,29 +101,56 @@ __device__ __forceinline__ T identity() {
   else return lowest<T>();
 }
 
-// Fold of one value per thread over the block, in thread order (lower
-// threads on the left); the result is valid in thread 0. warp_vals holds
-// kFoldWarps values.
-template <int OP, typename T>
-__device__ T block_fold(T v, T* warp_vals) {
+// How a thread's VEC lanes meet the C components of an (N, C) stream read
+// as flat elements: lane e of thread t holds flat element (t * VEC + e) plus a
+// multiple of kFoldThreads * VEC, which is a multiple of C, so its component
+// (t * VEC + e) % C is the same in every load. The lanes fold into kSlots =
+// min(C, VEC) accumulators, lane e into slot e % kSlots; slot s of thread t
+// holds component (t * VEC + s) % C, and threads t and t + kStride hold the
+// same components.
+template <int C, int VEC>
+struct Lanes {
+  static_assert(C == 1 || C == 2 || C == 4, "components: 1, 2 or 4");
+  static constexpr int kSlots = C < VEC ? C : VEC;
+  static constexpr int kStride = C / kSlots;
+  static __device__ __forceinline__ int component(int t, int s) { return (t * VEC + s) % C; }
+};
+
+// Fold of each component over the block, in a fixed order: a warp's shuffle
+// tree with offsets 16 .. kStride (which keep components apart), then warp 0
+// folds the warps' values of each component, lower warps on the left.
+// total[c] is valid in thread 0. warp_vals holds C * kFoldWarps values; the
+// caller syncs before warp_vals is written again.
+template <int OP, int C, int VEC, typename T>
+__device__ __forceinline__ void block_fold(T (&acc)[Lanes<C, VEC>::kSlots], T* warp_vals, T (&total)[C]) {
+  using L = Lanes<C, VEC>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const T other = __shfl_down_sync(0xffffffffu, v, o);
-    if (lane + o < 32) v = combine<OP>(v, other);
-  }
-  if (lane == 0) warp_vals[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kFoldWarps ? warp_vals[lane] : identity<OP, T>();
+  for (int s = 0; s < L::kSlots; ++s) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const T other = __shfl_down_sync(0xffffffffu, v, o);
-      if (lane + o < 32) v = combine<OP>(v, other);
+    for (int o = 16; o >= L::kStride; o >>= 1) {
+      const T other = __shfl_down_sync(0xffffffffu, acc[s], o);
+      if (lane + o < 32) acc[s] = combine<OP>(acc[s], other);
     }
   }
-  return v;
+  if (lane < L::kStride) {
+#pragma unroll
+    for (int s = 0; s < L::kSlots; ++s) warp_vals[L::component(lane, s) * kFoldWarps + warp] = acc[s];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      T v = lane < kFoldWarps ? warp_vals[c * kFoldWarps + lane] : identity<OP, T>();
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const T other = __shfl_down_sync(0xffffffffu, v, o);
+        if (lane + o < 32) v = combine<OP>(v, other);
+      }
+      total[c] = v;
+    }
+  }
 }
 
 // Exclusive scan of one value per thread over a block of WARPS warps, in

@@ -47,11 +47,24 @@ def kernels(**geometry: int) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args) -> None:
-    """Call the library's entry `fn_name` with `args` and the current stream
-    of `device`; raise with CUDA's message if the launch was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+def current_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream of `device` (an indexed CUDA
+    device, whose runtime is up), read without switching devices and without
+    building a torch.cuda.Stream, which costs several microseconds a call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args, stream: int | None = None) -> None:
+    """Call the library's entry `fn_name` with `args` and `stream` (by
+    default the current stream of `device`), with `device` current; raise
+    with CUDA's message if the launch was refused. The device is switched
+    only when it is not the current one already."""
+    if stream is None:
+        stream = current_stream(device)
+    if device.index == torch.cuda.current_device():
         err = getattr(lib, fn_name)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn_name)(*args, stream)
     if err != 0:
         fail("%s failed: %s (cudaError %d)", fn_name, lib.glu_error_string(err).decode(), err)

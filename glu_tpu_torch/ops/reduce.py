@@ -2,9 +2,9 @@
 
 Counterpart of glu_tpu/ops/reduce.py (reference glu/Reduce.hpp) for PyTorch
 on the GPU. Two backends:
-  - "cuda", K5 of ops/_cuda_reduce.py: two launches of a hand-written fold
-    kernel, per-CTA partials and then their fold (on a CPU tensor, its plain
-    torch version);
+  - "cuda", K5 of ops/_cuda_reduce.py: one launch of a hand-written fold
+    kernel, whose last CTA folds the per-CTA partials; an (N, C) vector
+    stream is read where it lies (on a CPU tensor, its plain torch version);
   - "torch", the portable path: one torch.sum / prod / amin / amax with the
     accumulator pinned to the input's dtype (the counterpart of "xla").
 
@@ -154,12 +154,12 @@ def _full(shape, value, dtype: torch.dtype, device) -> torch.Tensor:
 
 def _reduce_impl(x: torch.Tensor, op: ReduceOperator, backend: str) -> torch.Tensor:
     if backend == "cuda":
-        from ._cuda_reduce import reduce_partitions
+        from ._cuda_reduce import COMPONENTS, reduce_partitions
 
-        # components become partitions: one contiguous (P, L) layout, no vmap
-        parts = x.reshape(1, -1) if x.ndim == 1 else x.t()
-        out = reduce_partitions(parts.contiguous(), op)
-        return out.reshape(()) if x.ndim == 1 else out
+        # one row, (1, N) or (1, N, C), read where it lies; a vector of
+        # another width goes as C rows of one (C, N) copy
+        rows = x.unsqueeze(0) if x.ndim == 1 or x.shape[1] in COMPONENTS else x.t()
+        return reduce_partitions(rows.contiguous(), op).reshape(x.shape[1:])
     return _from_work(_fold(_to_work(x, op), op, 0), op, x.dtype)
 
 

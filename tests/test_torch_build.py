@@ -47,7 +47,7 @@ def test_bind_signatures_covers_every_entry_point():
     entries = set()
     for src in _build._CSRC.glob("*.cu"):
         entries |= set(re.findall(r"^(?:int|const char\*) (glu_\w+)\(", src.read_text(), re.M))
-    assert {"glu_digit_histograms", "glu_onesweep_pass", "glu_scan_pass", "glu_reduce_pass"} <= entries
+    assert {"glu_digit_histograms", "glu_onesweep_pass", "glu_scan_pass", "glu_reduce"} <= entries
 
     class FakeLib:
         def __getattr__(self, name):

@@ -188,7 +188,7 @@ def _fold_input(dtype, op, shape, dev) -> torch.Tensor:
     for MUL, factors near 1 for float MUL, positive float addends (no
     cancellation), and a NaN in row 0 for float MIN/MAX."""
     rng = np.random.default_rng(shape[0] * 7 + shape[1] + op.value)
-    n = shape[0] * shape[1]
+    n = int(np.prod(shape))
     if dtype.is_floating_point:
         if op == ReduceOperator.SUM:
             a = rng.uniform(0, 1, n)
@@ -215,15 +215,88 @@ def _assert_close(got: torch.Tensor, want: torch.Tensor) -> None:
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("shape", FOLD_SHAPES)
+# K5 also takes (P, L, C): an (N, C) stream read in place, a row of vectors
+# ragged against the tile, three rows of 4-vectors
+REDUCE_SHAPES = FOLD_SHAPES + [(1, 100_003, 2), (3, 4_097, 4)]
+
+
+def _reduce_once(x: torch.Tensor, op) -> torch.Tensor:
+    """K5 against its plain version, in one launch."""
+    before = cr.launch_counts()["reduce"]
+    got = cr.reduce_partitions(x, op)
+    assert cr.launch_counts()["reduce"] - before == 1
+    _assert_close(got, cr.reduce_partitions_ref(x, op))
+    return got
+
+
+@pytest.mark.parametrize("shape", REDUCE_SHAPES)
 @pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("op", list(ReduceOperator))
 def test_reduce_partitions_match_plain(dev, op, dtype, shape):
+    _reduce_once(_fold_input(dtype, op, shape, dev), op)
+
+
+@pytest.mark.parametrize("shape", [(1, 100_003, 4), (2, 5_001, 2), (3, 7_001)])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("op", list(ReduceOperator))
+def test_reduce_partitions_unaligned(dev, op, dtype, shape):
+    # rows that start off a 16-byte boundary take the kernel's 1-wide loads,
+    # for float64 4-vectors too, with each component in its own lanes
+    flat = _fold_input(dtype, op, (1, int(np.prod(shape)) + 1), dev)
+    x = flat.view(-1)[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    _reduce_once(x, op)
+
+
+@pytest.mark.parametrize("shape", [(1_100, 5_000), (2_000, 300, 4)])
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.float64])
+def test_reduce_partitions_one_cta_a_row(dev, dtype, shape):
+    # more rows than MAX_CTAS: one CTA a row writes its result itself, with no ticket
+    assert cr.ctas_per_partition(shape[0], int(np.prod(shape[1:]))) == 1
+    _reduce_once(_fold_input(dtype, ReduceOperator.SUM, shape, dev), ReduceOperator.SUM)
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 22), (1, 1 << 20, 4)])
+@pytest.mark.parametrize("dtype,op", [(torch.float32, ReduceOperator.SUM), (torch.float64, ReduceOperator.MUL)])
+def test_reduce_partitions_same_from_run_to_run(dev, dtype, op, shape):
+    # whichever CTA comes last folds the partials in CTA order: the float
+    # result must not change
     x = _fold_input(dtype, op, shape, dev)
-    before = cr.launch_counts()["reduce"]
-    got = cr.reduce_partitions(x, op)
-    assert cr.launch_counts()["reduce"] - before == 2
-    _assert_close(got, cr.reduce_partitions_ref(x, op))
+    first = _reduce_once(x, op)
+    for _ in range(4):
+        assert torch.equal(cr.reduce_partitions(x, op).view(torch.int8), first.view(torch.int8))
+
+
+def test_reduce_partitions_leave_tickets_at_zero(dev):
+    # 200 reduces of varying rows and components, no sync between them: each
+    # is right only if the one before left every ticket at 0
+    rng = np.random.default_rng(3)
+    cases = []
+    for i in range(200):
+        comps = (1, 2, 4)[i % 3]
+        shape = (int(rng.integers(1, 9)), int(rng.integers(1, 40_000))) + ((comps,) if comps > 1 else ())
+        x = torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32))
+        x = x.to(dev).view(torch.uint32)
+        cases.append((x, cr.reduce_partitions(x, ReduceOperator.SUM)))
+    for x, got in cases:
+        _assert_close(got, cr.reduce_partitions_ref(x, ReduceOperator.SUM))
+
+
+def test_reduce_partitions_on_a_side_stream(dev):
+    # a reduce on a side stream and one on the default stream, unsynchronised
+    # with each other: each stream has its own tickets and partials
+    side = torch.cuda.Stream(dev)
+    x = _fold_input(torch.uint32, ReduceOperator.SUM, (4, 200_003), dev)
+    y = _fold_input(torch.float32, ReduceOperator.MAX, (2, 100_001, 4), dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = [cr.reduce_partitions(x, ReduceOperator.SUM) for _ in range(20)]
+    on_default = [cr.reduce_partitions(y, ReduceOperator.MAX) for _ in range(20)]
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for got in on_side:
+        _assert_close(got, cr.reduce_partitions_ref(x, ReduceOperator.SUM))
+    for got in on_default:
+        _assert_close(got, cr.reduce_partitions_ref(y, ReduceOperator.MAX))
 
 
 @pytest.mark.parametrize("shape", FOLD_SHAPES)
@@ -276,7 +349,7 @@ def test_scan_sum_non_finite_is_exact(dev, case, dtype, inclusive):
 def test_reduce_and_scan_entry_points_match_torch(dev, op):
     # the public entry points, "cuda" against "torch", on scalars and on
     # the (N, 4) layout of UVEC4
-    for shape in [(1 << 20,), (100_003, 4)]:
+    for shape in [(1 << 20,), (100_003, 4), (100_003, 2), (100_003, 3)]:
         x = _fold_input(torch.uint32, op, (1, int(np.prod(shape))), dev).reshape(shape)
         _assert_close(glu_tpu_torch.reduce(x, op), glu_tpu_torch.reduce(x, op, backend="torch"))
         for fn in (glu_tpu_torch.exclusive_scan, glu_tpu_torch.inclusive_scan):

@@ -155,6 +155,87 @@ def test_reduce_partitions_match_pallas_kernel(op, monkeypatch, seeded_rng):
     assert cr.launch_counts() == {"reduce": 0}  # plain versions launch nothing
 
 
+VECTOR_TYPES = [t for t in DataType if glu_tpu_torch.dtype_info(t).components > 1]
+
+
+@pytest.mark.parametrize("comps", [2, 4])
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32])
+@pytest.mark.parametrize("op", OPS)
+def test_reduce_partitions_vectors_match_pallas_kernel(op, dtype, comps, monkeypatch, seeded_rng):
+    # K5 on (P, L, C): the plain version, each row's 333 * C flat elements
+    # ragged against the 64-element tile, against _pallas_reduce_flat in
+    # interpret mode on each row's (L, C) through pallas_reduce
+    from glu_tpu.ops._pallas_reduce import pallas_reduce
+
+    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
+    rng = seeded_rng(11 + 4 * op.value + comps)
+    shape = (3, 333, comps)
+    if dtype == np.uint32:
+        x = rng.sample_int_vector(int(np.prod(shape)), 0, 0xFFFFFFFF).reshape(shape)
+        if op == ReduceOperator.MUL:
+            x |= 1
+    else:
+        x = rng.rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
+    got = to_numpy(cr.reduce_partitions(_t(x), op))
+    want = np.stack([np.asarray(pallas_reduce(jnp.asarray(row), _jop(op))) for row in x])
+    assert got.shape == want.shape == (3, comps) and got.dtype == want.dtype
+    if dtype == np.uint32:
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, _NP_OP[op].reduce(x, axis=1, dtype=np.uint32))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    assert cr.launch_counts() == {"reduce": 0}
+
+
+@pytest.mark.parametrize("data_type", VECTOR_TYPES)
+@pytest.mark.parametrize("op", OPS)
+def test_reduce_vector_types_over_many_tiles(data_type, op, backend, seeded_rng):
+    # every vector DataType as an (N, C) stream over many 64-element tiles and
+    # a ragged tail, which the "cuda" backend reads in place as one (1, N, C) row
+    info = glu_tpu_torch.dtype_info(data_type)
+    host = _typed_data(info, seeded_rng(13 + op.value), 1001)
+    want = glu_tpu.reduce(jnp.asarray(host), _jop(op), backend=backend)
+    _assert_port(lambda b: glu_tpu_torch.reduce(_t(host), op, backend=b), want, info.dtype.is_floating_point)
+
+
+@pytest.mark.parametrize("shape,rows", [((1000,), (1, 1000)), ((1000, 1), (1, 1000, 1)), ((1000, 2), (1, 1000, 2)),
+                                        ((1000, 4), (1, 1000, 4)), ((1000, 3), (3, 1000))])
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_reduce_reads_vectors_in_place(shape, rows, contiguous, monkeypatch):
+    # the "cuda" backend hands K5 a view of a contiguous (N,) or (N, C) input
+    # with C in 1, 2, 4, no copy; other widths go as C rows of one (C, N)
+    # copy, and a non-contiguous input is copied once
+    seen = []
+    real = cr.reduce_partitions
+
+    def spy(x, op):
+        seen.append(x)
+        return real(x, op)
+
+    monkeypatch.setattr(cr, "reduce_partitions", spy)
+    base = torch.arange(2 * int(np.prod(shape)), dtype=torch.int32).reshape((2 * shape[0],) + shape[1:])
+    x = base[: shape[0]] if contiguous else base[::2]
+    got = glu_tpu_torch.reduce(x, ReduceOperator.MAX)
+    assert [tuple(t.shape) for t in seen] == [rows]
+    assert (seen[0].data_ptr() == x.data_ptr()) == (contiguous and len(shape) + 1 == len(rows))
+    assert torch.equal(got, torch.amax(x, 0))
+
+
+def test_reduce_class_vector_writes_index_0(backend):
+    # a UVEC4 DeviceBuffer: the (C,) result lands at buffer[0], in place
+    data = np.random.default_rng(17).integers(0, 2**32, (1000, 4), dtype=np.uint64).astype(np.uint32)
+    jbuf = glu_tpu.DeviceBuffer(data)
+    want = glu_tpu.Reduce(glu_tpu.DataType.UVEC4, glu_tpu.ReduceOperator.SUM)(jbuf, 700, backend=backend)
+    np.testing.assert_array_equal(np.asarray(want), data[:700].sum(axis=0, dtype=np.uint32))
+    for b in PORT_BACKENDS:
+        buf = DeviceBuffer(data, device="cpu")
+        storage = buf.data.data_ptr()
+        result = Reduce(DataType.UVEC4, ReduceOperator.SUM)(buf, 700, backend=b)
+        np.testing.assert_array_equal(to_numpy(result), np.asarray(want))
+        np.testing.assert_array_equal(buf.get_data(), jbuf.get_data())
+        assert buf.data.data_ptr() == storage
+
+
 def test_reduce_class_writes_index_0(backend):
     # test_reduce.py:96: the class leaves the result at buffer[0], in place
     data = np.arange(1, 11, dtype=np.uint32)
@@ -317,3 +398,7 @@ def test_reduce_rejects_what_jax_rejects():
         glu_tpu_torch.reduce(_t(x), backend="xla")
     with pytest.raises(GluArgumentError, match="contiguous"):
         cr.reduce_partitions(torch.ones((4, 2), dtype=torch.int32).t(), ReduceOperator.SUM)
+    for bad in (torch.ones((2, 4, 3), dtype=torch.int32), torch.ones((2, 4, 2, 1), dtype=torch.int32),
+                torch.ones((2, 2, 4), dtype=torch.int32).transpose(1, 2)):
+        with pytest.raises(GluArgumentError):
+            cr.reduce_partitions(bad, ReduceOperator.SUM)
