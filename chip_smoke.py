@@ -22,7 +22,20 @@ Phases, each of which raises (exit code 1) on any failure:
      onesweep_pass 4 times and sort_single_tile never, and so did a sort of
      SINGLE_TILE_MAX + 1 pairs; num_steps=3 (12 bits) 1 and 2 times; the
      sorts of 10,000 and SINGLE_TILE_MAX pairs ran sort_single_tile alone;
-  6. the scan and reduce kernels (exclusive_scan K4, reduce K5) against
+  6. the sort variants at full width, each bit for bit against the same
+     call with backend="torch", with the launch counts set to 0 before each
+     call and checked after it: radix_sort_keys, radix_argsort(descending=
+     True) on keys with heavy duplicates, radix_sort_f32 with +-0.0, +-inf
+     and NaNs of both signs, radix_sort_i32, radix_sort(bits="auto") on keys
+     below 2**10 (1 envelope histogram + 1 histogram + 2 passes), bits=(0, 3,
+     9, 17, 31), radix_sort_u64 with duplicates (2 histograms + 8 passes),
+     radix_sort_segmented over 4,096 uneven offsets and 4,096 partitions
+     (2 + 4 + 2 passes), all at 2**28 pairs, and radix_sort_multi with 7 and
+     9 payloads at 2**24; each again at 10,000 pairs (K3 alone); each
+     full-size variant timed against backend="torch" in turns, and a
+     per-launch profile of each 2**28 variant but i32 and explicit bits
+     (their launches are those of the pair sort and of bits="auto");
+  7. the scan and reduce kernels (exclusive_scan K4, reduce K5) against
      their plain torch versions on the card, for sum, mul, min and max on
      int32, uint32, float32 and float64, at ragged, partitioned, vector and
      the sort table's shapes, at the main path's 2**28 u32 and at 2**26 f64
@@ -34,7 +47,7 @@ Phases, each of which raises (exit code 1) on any failure:
      K5's f32 SUM and f64 MUL (K4 at (1, 2**22) and (64, 3 * TILE + 5), K5 at
      (1, 2**22) and (1, 2**20, 4)), launched 5 times, bit-identical from run
      to run;
-  7. the scan and reduce main path: exclusive_scan, inclusive_scan and
+  8. the scan and reduce main path: exclusive_scan, inclusive_scan and
      reduce of 2**28 u32, reduce of 2**28 f32 (MAX), reduce of (2**26, 4)
      u32 (SUM) and (2**25, 4) f64 (MIN) vector streams with under 1 MiB
      allocated (no copy of the 1 GiB input), exclusive_scan of 2**24 f32,
@@ -43,7 +56,7 @@ Phases, each of which raises (exit code 1) on any failure:
      device, each against backend="torch" or an exact reference; the launch
      counts, set to 0 before and read after, match the design (K4 1 launch
      per scan, K5 1 per reduce);
-  8. timings (CUDA events, medians), for the record only, and a per-launch
+  9. timings (CUDA events, medians), for the record only, and a per-launch
      profile (torch.profiler) of one 2**28 sort, scan and reduce and of the
      two vector reduces; the vector reduces against torch.sum(x, 0) and
      torch.amin(x, 0); the host time per call of K5's wrapper and of
@@ -310,7 +323,140 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     print(f"launch counts over the main path: {launches}")
 
-    # -- 6. K4 and K5 against their plain versions -----------------------------
+    # -- 6. the sort variants at full width --------------------------------------
+    def median_ms(fn, reps: int = REPS) -> float:
+        fn()  # warm-up
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    def host_us(fn, reps: int = 50) -> float:
+        """Host time per call: from the call to its return, the card idle
+        before each call (median)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return sorted(times)[reps // 2] * 1e6
+
+    def turns(kernel_fn, plain_fn, reps: int = REPS):
+        """(kernel ms, plain ms): the lower of two medians each, measured in
+        turns plain, kernel, kernel, plain."""
+        p_ms = [median_ms(plain_fn, reps)]
+        k_ms = [median_ms(kernel_fn, reps), median_ms(kernel_fn, reps)]
+        p_ms.append(median_ms(plain_fn, reps))
+        return min(k_ms), min(p_ms)
+
+    tag = f"[{gpu}]"
+    t0 = time.perf_counter()
+
+    def iota(n: int) -> torch.Tensor:
+        return as_u32(torch.arange(n, dtype=torch.int32, device=dev))
+
+    def f32_specials(n: int) -> torch.Tensor:
+        """Normal floats with +-0.0, +-inf and NaNs of both signs sprinkled in."""
+        k = torch.randn(n, device=dev, generator=gen)
+        patterns = (0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF)
+        specials = torch.tensor([p - (p >> 31 << 32) for p in patterns], dtype=torch.int32, device=dev)
+        at = torch.randint(0, n, (max(n // 1000, 64),), device=dev, generator=gen)
+        k.view(torch.int32)[at] = specials[torch.randint(0, specials.numel(), at.shape, device=dev, generator=gen)]
+        return k
+
+    def u64_duplicates(n: int) -> torch.Tensor:
+        """Keys drawn from n / 4 distinct u64 words, half of them >= 2**63."""
+        distinct = torch.randint(-(2**63), 2**63 - 1, (n // 4,), dtype=torch.int64, device=dev, generator=gen)
+        return distinct[torch.randint(0, n // 4, (n,), device=dev, generator=gen)].view(torch.uint64)
+
+    def uneven_offsets(n: int, segments: int) -> torch.Tensor:
+        cuts = torch.sort(torch.randint(0, n + 1, (segments - 1,), device=dev, generator=gen)).values
+        return torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)])
+
+    def flat(out) -> list:
+        return [t for o in (out if isinstance(out, tuple) else (out,)) for t in (o if isinstance(o, tuple) else (o,))]
+
+    def int_bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+    small_n = 10_000
+    u32_at = lambda n: as_u32(words(n, "uniform"))  # noqa: E731
+    variants = [  # label, function, full size, n -> (args, keywords), launches at full size and at small_n
+        ("radix_sort_keys", "radix_sort_keys", MAIN_N, lambda n: ((u32_at(n),), {}), (1, 4, 0), (0, 0, 1)),
+        ("radix_argsort descending, keys & 0xFFFFF", "radix_argsort", MAIN_N,
+         lambda n: ((as_u32(words(n, "uniform") & 0xFFFFF),), {"descending": True}), (1, 4, 0), (0, 0, 1)),
+        ("radix_sort_f32 with specials", "radix_sort_f32", MAIN_N, lambda n: ((f32_specials(n), iota(n)), {}),
+         (1, 4, 0), (0, 0, 1)),
+        ("radix_sort_i32", "radix_sort_i32", MAIN_N, lambda n: ((words(n, "uniform"), iota(n)), {}),
+         (1, 4, 0), (0, 0, 1)),
+        ('radix_sort bits="auto", keys < 2**10', "radix_sort", MAIN_N,
+         lambda n: ((as_u32(words(n, "uniform") & 0x3FF), iota(n)), {"bits": "auto"}), (2, 2, 0), (1, 0, 1)),
+        ("radix_sort bits=(0, 3, 9, 17, 31)", "radix_sort", MAIN_N,
+         lambda n: ((u32_at(n), iota(n)), {"bits": (0, 3, 9, 17, 31)}), (1, 1, 0), (0, 0, 1)),
+        ("radix_sort_u64 with duplicates", "radix_sort_u64", MAIN_N, lambda n: ((u64_duplicates(n), iota(n)), {}),
+         (2, 8, 0), (0, 0, 2)),
+        ("radix_sort_segmented, 4096 uneven offsets", "radix_sort_segmented", MAIN_N,
+         lambda n: ((u32_at(n), iota(n)), {"offsets": uneven_offsets(n, 4096)}), (2, 6, 0), (0, 0, 2)),
+        ("radix_sort_segmented, 4096 partitions (100 at small_n)", "radix_sort_segmented", MAIN_N,
+         lambda n: ((u32_at(n), iota(n)), {"num_partitions": 4096 if n == MAIN_N else 100}), (2, 6, 0), (0, 0, 2)),
+        ("radix_sort_multi, 7 payloads", "radix_sort_multi", 1 << 24,
+         lambda n: ((u32_at(n), [iota(n)] + [u32_at(n) for _ in range(6)]), {}), (1, 4, 0), (0, 0, 1)),
+        ("radix_sort_multi, 9 payloads", "radix_sort_multi", 1 << 24,
+         lambda n: ((u32_at(n), [iota(n)] + [u32_at(n) for _ in range(8)]), {}), (1, 4, 0), (0, 0, 1)),
+    ]
+    kernel_order = ("digit_histograms", "onesweep_pass", "sort_single_tile")
+    variant_launches = dict.fromkeys(kernel_order, 0)
+    variant_times = []
+    for label, fn_name, full_n, make, want_full, want_small in variants:
+        fn = getattr(glu_tpu_torch, fn_name)
+        for n, want in ((full_n, want_full), (small_n, want_small)):
+            args, kw = make(n)
+            torch.cuda.synchronize()
+            cs.reset_launch_counts()
+            got = flat(fn(*args, **kw))
+            torch.cuda.synchronize()
+            counts = cs.launch_counts()
+            ran = tuple(counts[k] for k in kernel_order)
+            if ran != want:
+                raise AssertionError(f"{label} n={n}: launched histogram/onesweep/K3 {ran}, want {want}")
+            for k in kernel_order:
+                variant_launches[k] += counts[k]
+            ref = flat(fn(*args, backend="torch", **kw))
+            if len(got) != len(ref):
+                raise AssertionError(f"{label} n={n}: {len(got)} outputs, the torch backend {len(ref)}")
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if g.dtype != r.dtype or g.shape != r.shape or not g.is_cuda:
+                    raise AssertionError(f"{label} n={n} output {i}: {g.dtype} {tuple(g.shape)} on {g.device}, "
+                                         f"want {r.dtype} {tuple(r.shape)}")
+                bad = first_mismatch(int_bits(g), int_bits(r))
+                if bad is not None:
+                    raise AssertionError(f"{label} n={n} output {i}: differs from backend torch at index {bad}")
+            print(f"sort variant {label}, n={n}: bit-identical to backend torch, launches "
+                  f"histogram/onesweep/K3 {ran}")
+            if n == full_n:
+                cuda_ms, torch_ms = turns(lambda: fn(*args, **kw), lambda: fn(*args, backend="torch", **kw))
+                variant_times.append(f"time {label} ({n} pairs): backend cuda {cuda_ms:.3f} ms, "
+                                     f"backend torch {torch_ms:.3f} ms {tag}")
+                if fn_name != "radix_sort_i32" and n == MAIN_N and "bits=(" not in label:
+                    for line in _profile_kernels(torch, lambda: fn(*args, **kw)):
+                        variant_times.append(f"profile {label} ({n} pairs): {line} {tag}")
+            del args, kw, got, ref
+    for line in variant_times:
+        print(line)
+    for k in kernel_order:
+        launches[k] += variant_launches[k]
+    print(f"sort variants: {2 * len(variants)} calls bit-identical to backend torch, launches {variant_launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 7. K4 and K5 against their plain versions -----------------------------
     import numpy as np
 
     from glu_tpu_torch import DataType, ReduceOperator as Op
@@ -422,7 +568,7 @@ def main() -> int:
           f"max_abs_err exclusive_scan {max_err['exclusive_scan']!r} reduce {max_err['reduce']!r}; "
           f"bit-identical over 5 runs in {len(rerun_cases)} float cases ({time.perf_counter() - t0:.1f} s)")
 
-    # -- 7. the scan and reduce main path at full width -------------------------
+    # -- 8. the scan and reduce main path at full width -------------------------
     def slice_call(label: str, fn, want: tuple):
         """Run fn on the card; its K4 and K5 launches must be `want`."""
         before = (csc.scan_launches, cr.reduce_launches)
@@ -510,41 +656,7 @@ def main() -> int:
     print(f"launch counts over the scan/reduce path: {fold_launches}")
     launches.update(fold_launches)
 
-    # -- 8. timings, for the record ----------------------------------------------
-    def median_ms(fn, reps: int = REPS) -> float:
-        fn()  # warm-up
-        times = []
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return sorted(times)[len(times) // 2]
-
-    def host_us(fn, reps: int = 50) -> float:
-        """Host time per call: from the call to its return, the card idle
-        before each call (median)."""
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t)
-        torch.cuda.synchronize()
-        return sorted(times)[reps // 2] * 1e6
-
-    def turns(kernel_fn, plain_fn, reps: int = REPS):
-        """(kernel ms, plain ms): the lower of two medians each, measured in
-        turns plain, kernel, kernel, plain."""
-        p_ms = [median_ms(plain_fn, reps)]
-        k_ms = [median_ms(kernel_fn, reps), median_ms(kernel_fn, reps)]
-        p_ms.append(median_ms(plain_fn, reps))
-        return min(k_ms), min(p_ms)
-
-    tag = f"[{gpu}]"
+    # -- 9. timings, for the record ----------------------------------------------
     keys = as_u32(words(MAIN_N, "uniform"))
     values = as_u32(torch.arange(MAIN_N, dtype=torch.int32, device=dev))
     sort_ms, torch_ms = turns(lambda: glu_tpu_torch.radix_sort(keys, values),

@@ -4,7 +4,9 @@ for NVIDIA Hopper (H100).
 It mirrors glu_tpu's layout and public names. Ported so far: the utility
 layer; the stable LSD radix sort of u32 key/value pairs (`radix_sort`,
 `RadixSort`), whose engine runs three CUDA kernels (ops/_cuda_sort.py,
-csrc/radix_sort.cu); the reduce (`reduce`, `segmented_reduce`, `Reduce`,
+csrc/radix_sort.cu), and its variants on the same engine (keys-only,
+multi-payload, argsort, f32/i32/u64 keys, `descending=`, `bits=`,
+segmented); the reduce (`reduce`, `segmented_reduce`, `Reduce`,
 kernel K5 in csrc/reduce.cu) and the scan (`exclusive_scan`,
 `inclusive_scan`, `BlellochScan`, kernel K4 in csrc/scan.cu). A function
 given a tensor works on the tensor's device; a function that makes a tensor
@@ -26,7 +28,19 @@ from .utils.math import (
 )
 from .utils.buffers import DeviceBuffer, copy_buffer, default_device, from_numpy, to_numpy
 from .utils.timing import measure_elapsed_time
-from .ops.radix_sort import RadixSort, radix_sort
+from .ops.radix_sort import (
+    RadixSort,
+    radix_argsort,
+    radix_sort,
+    radix_sort_f32,
+    radix_sort_i32,
+    radix_sort_keys,
+    radix_sort_multi,
+    radix_sort_segmented,
+    radix_sort_u64,
+    radix_sort_u64_parts,
+    varying_key_bits,
+)
 from .ops.reduce import Reduce, ReduceOperator, reduce, segmented_reduce
 from .ops.scan import BlellochScan, exclusive_scan, inclusive_scan
 
@@ -56,6 +70,15 @@ __all__ = [
     "measure_elapsed_time",
     "RadixSort",
     "radix_sort",
+    "radix_sort_f32",
+    "radix_sort_i32",
+    "radix_sort_keys",
+    "radix_sort_multi",
+    "radix_sort_segmented",
+    "radix_sort_u64",
+    "radix_sort_u64_parts",
+    "radix_argsort",
+    "varying_key_bits",
     "Reduce",
     "ReduceOperator",
     "reduce",

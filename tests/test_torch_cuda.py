@@ -177,6 +177,94 @@ def test_radix_sort_class_on_card(dev):
     np.testing.assert_array_equal(vbuf.get_data(), np.r_[order, vals[n - 7:]])
 
 
+def _f32_specials(rng, n: int) -> np.ndarray:
+    """Normal floats with +-0.0, +-inf and NaNs of both signs sprinkled in."""
+    k = rng.standard_normal(n).astype(np.float32)
+    specials = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7F800001,
+                         0xFFFFFFFF], dtype=np.uint32).view(np.float32)
+    k[rng.integers(0, n, n // 50)] = specials[rng.integers(0, specials.size, n // 50)]
+    return k
+
+
+def _variant_inputs(rng, n: int) -> dict:
+    u = rng.integers(0, 2**32, n, dtype=np.uint32)
+    k64 = rng.integers(0, 2**64, n, dtype=np.uint64)
+    k64[: n // 8] |= np.uint64(1 << 63)  # keys >= 2**63
+    k64[n // 2 :] = k64[: n - n // 2]  # duplicates
+    k64[::5] = (k64[0] & np.uint64(0xFFFFFFFF00000000)) | (k64[::5] & np.uint64(0xFFFFFFFF))  # equal hi words
+    return {"u": u, "dups": u & np.uint32(0xFFF), "low10": u & np.uint32(0x3FF), "zeros": u & np.uint32(0),
+            "f32": _f32_specials(rng, n), "i32": u.view(np.int32), "i32 >> 20": u.view(np.int32) >> 20,
+            "k64": k64, "k64 < 2**40": k64 & np.uint64((1 << 40) - 1), "iota": np.arange(n, dtype=np.uint32),
+            "u 4 partitions": u[: n // 4 * 4], "iota 4 partitions": np.arange(n // 4 * 4, dtype=np.uint32)}
+
+
+SORT_VARIANTS = {  # name -> (inputs on the card, backend) -> outputs
+    "keys": lambda x, b: glu_tpu_torch.radix_sort_keys(x["u"], backend=b),
+    "keys num_steps=3": lambda x, b: glu_tpu_torch.radix_sort_keys(x["u"], 3, backend=b),
+    "multi 7 payloads": lambda x, b: glu_tpu_torch.radix_sort_multi(x["dups"], [x["iota"]] + [x["u"]] * 6, backend=b),
+    "multi 9 payloads": lambda x, b: glu_tpu_torch.radix_sort_multi(x["dups"], [x["iota"]] + [x["u"]] * 8, backend=b),
+    "argsort descending": lambda x, b: glu_tpu_torch.radix_argsort(x["dups"], descending=True, backend=b),
+    "descending auto": lambda x, b: glu_tpu_torch.radix_sort(x["low10"], x["iota"], descending=True, bits="auto",
+                                                             backend=b),
+    "auto below 2**10": lambda x, b: glu_tpu_torch.radix_sort(x["low10"], x["iota"], bits="auto", backend=b),
+    "auto constant": lambda x, b: glu_tpu_torch.radix_sort(x["zeros"], x["iota"], bits="auto", backend=b),
+    "bits (0, 3, 9, 17, 31)": lambda x, b: glu_tpu_torch.radix_sort(x["u"], x["iota"], bits=(0, 3, 9, 17, 31),
+                                                                    backend=b),
+    "f32 specials": lambda x, b: glu_tpu_torch.radix_sort_f32(x["f32"], x["iota"], backend=b),
+    "f32 specials descending": lambda x, b: glu_tpu_torch.radix_sort_f32(x["f32"], x["iota"], descending=True,
+                                                                         backend=b),
+    "i32": lambda x, b: glu_tpu_torch.radix_sort_i32(x["i32"], x["iota"], backend=b),
+    "i32 descending auto": lambda x, b: glu_tpu_torch.radix_sort_i32(x["i32 >> 20"], x["iota"], descending=True,
+                                                                     bits="auto", backend=b),
+    "u64": lambda x, b: glu_tpu_torch.radix_sort_u64(x["k64"], x["iota"], backend=b),
+    "u64 auto": lambda x, b: glu_tpu_torch.radix_sort_u64(x["k64 < 2**40"], x["iota"], bits="auto",
+                                                          backend=b),
+    "u64 parts bit pair": lambda x, b: glu_tpu_torch.radix_sort_u64_parts(
+        x["dups"], x["u"], x["iota"], bits=(tuple(range(12)), (31, 0, 7)), backend=b),
+    "segmented offsets": lambda x, b: glu_tpu_torch.radix_sort_segmented(x["u"], x["iota"], offsets=x["offsets"],
+                                                                         backend=b),
+    "segmented 4 partitions": lambda x, b: glu_tpu_torch.radix_sort_segmented(x["u 4 partitions"],
+                                                                              x["iota 4 partitions"], 4, backend=b),
+}
+
+
+def _bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _flat(out) -> list:
+    return [t for o in (out if isinstance(out, tuple) else (out,)) for t in (o if isinstance(o, tuple) else (o,))]
+
+
+@pytest.mark.parametrize("n", [10_001, 3 * cs.TILE + 777, 1_000_003])
+@pytest.mark.parametrize("variant", list(SORT_VARIANTS))
+def test_sort_variant_matches_torch_backend(dev, variant, n):
+    # K3 alone, a few tiles with a ragged tail, many tiles: bit for bit
+    # against the "torch" backend (one stable torch.sort) on the same keys
+    rng = np.random.default_rng(n)
+    x = {k: glu_tpu_torch.from_numpy(v, dev) for k, v in _variant_inputs(rng, n).items()}
+    x["offsets"] = torch.tensor(np.r_[0, np.sort(rng.integers(0, n + 1, 299)), n], device=dev)
+    before = sum(cs.launch_counts().values())
+    got = _flat(SORT_VARIANTS[variant](x, "cuda"))
+    launched = sum(cs.launch_counts().values()) - before
+    want = _flat(SORT_VARIANTS[variant](x, "torch"))
+    _assert_same([_bits_of(t) for t in got], [_bits_of(t) for t in want])
+    assert launched >= 1 and all(t.is_cuda for t in got)
+
+
+@pytest.mark.parametrize("mask", [0, 1, 0x3FF, 0x80000001, 0x0F0F00F0, 0xFFFFFFFF])
+def test_varying_key_bits_on_card(dev, mask):
+    # the envelope by one digit_histograms launch against numpy's OR ^ AND
+    rng = np.random.default_rng(mask)
+    keys = (rng.integers(0, 2**32, 1_000_003, dtype=np.uint32) & np.uint32(mask)) | np.uint32(0x12345678 & ~mask)
+    want = int(np.bitwise_or.reduce(keys) ^ np.bitwise_and.reduce(keys))
+    before = cs.launch_counts()
+    got = glu_tpu_torch.varying_key_bits(glu_tpu_torch.from_numpy(keys, dev))
+    after = cs.launch_counts()
+    assert got == tuple(b for b in range(32) if (want >> b) & 1)
+    assert {k: after[k] - before[k] for k in after} == {"digit_histograms": 1, "onesweep_pass": 0, "sort_single_tile": 0}
+
+
 KERNEL_DTYPES = [torch.int32, torch.uint32, torch.float32, torch.float64]
 # ragged, one tile, 100 partitions of 1000, the UVEC4 layout (4 partitions),
 # the sort's [digit][tile] table (16 x 65536)

@@ -171,6 +171,38 @@ def test_sort_rejects_what_jax_rejects():
             glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), steps)
     with pytest.raises(GluError):
         glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), backend="xla")
-    for kwargs in ({"descending": True}, {"bits": "auto"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            glu_tpu_torch.radix_sort(from_numpy(k, "cpu"), from_numpy(k, "cpu"), **kwargs)
+    # the variants' contracts (test_radix_sort.py:289,330,364;
+    # test_adaptive_sort.py:164): (function name, arrays, keywords)
+    k10 = np.arange(10, dtype=np.uint32)
+    bad_variants = [
+        ("radix_sort", (k, k), {"num_steps": 2, "descending": True}),  # descending with a partial sort
+        ("radix_sort", (k[:1], k[:1]), {"num_steps": 2, "descending": True}),  # checked before n <= 1
+        ("radix_sort", (k, k), {"num_steps": 3, "bits": "auto"}),  # bits with a partial sort
+        ("radix_sort_keys", (k,), {"num_steps": 3, "bits": (0, 1)}),
+        ("radix_sort", (k, k), {"bits": (0, 0)}),  # repeated position
+        ("radix_sort", (k, k), {"bits": (32,)}),  # out of range
+        ("radix_sort", (k, k), {"bits": (-1,)}),
+        ("radix_sort", (k, k), {"bits": "yes"}),  # unknown string
+        ("radix_sort_u64_parts", (k, k, k), {"bits": (0, 1)}),  # u64 bits not a pair
+        ("radix_sort_u64_parts", (k, k, k), {"bits": ((0, 1), (2,), (3,))}),
+        ("radix_sort_u64_parts", (k, k, k), {"bits": ((0, 1), (40,))}),
+        ("radix_sort_segmented", (k10, k10), {"num_partitions": 2, "offsets": np.array([0, 10])}),  # both forms
+        ("radix_sort_segmented", (k10, k10), {"num_partitions": 3}),  # 3 does not divide 10
+        ("radix_sort_segmented", (k10, k10), {"offsets": np.array([1, 10])}),  # offsets[0] != 0
+        ("radix_sort_segmented", (k10, k10), {"offsets": np.array([0, 9])}),  # offsets[-1] != n
+        ("radix_sort_segmented", (k10, k10), {"offsets": np.array([0, 7, 3, 10])}),  # decreasing
+        ("radix_sort_f32", (k, k), {}),  # f32 keys must be float32
+        ("radix_sort_i32", (k.astype(np.int32), k.astype(np.int32)), {}),  # values must be uint32
+        ("radix_sort_u64", (k, k), {}),  # u64 keys must be uint64
+        ("radix_sort_multi", (k, (k, k[:3])), {}),  # a payload's length
+    ]
+    for name, arrays, kwargs in bad_variants:
+        with pytest.raises(JaxArgumentError):
+            jax_kw = {a: jnp.asarray(b) if isinstance(b, np.ndarray) else b for a, b in kwargs.items()}
+            args = [tuple(map(jnp.asarray, a)) if isinstance(a, tuple) else jnp.asarray(a) for a in arrays]
+            getattr(glu_tpu, name)(*args, backend="xla", **jax_kw)
+        for backend in ("cuda", "torch"):
+            with pytest.raises(GluArgumentError):
+                args = [tuple(from_numpy(b, "cpu") for b in a) if isinstance(a, tuple) else from_numpy(a, "cpu")
+                        for a in arrays]
+                getattr(glu_tpu_torch, name)(*args, backend=backend, **kwargs)
