@@ -62,8 +62,23 @@ Phases, each of which raises (exit code 1) on any failure:
      torch.amin(x, 0); the host time per call of K5's wrapper and of
      torch.sum; K3's kernel alone (profiler), its wrapper, its host time per
      call and radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the
-     crossover table of K3, the histogram + onesweep path and
-     torch.sort(stable) + gather from 1,024 to 65,536 pairs.
+     crossover table of K3, the histogram + onesweep path,
+     torch.sort(stable) + gather, radix_sort on the kernels and routed, from
+     1,024 to 2**20 pairs;
+ 10. the router guard (_router_guard): a quick calibration into a temporary
+     file, then backend=None under the shipped table and under that file
+     against backend "cuda" and "torch", in turns, for key/value sorts from
+     1,024 to 2**28 pairs, keys-only, 2 payloads, one 8-bit pass, u64 and
+     4,096 segments at 65,536, 2**20 and 2**24, and reduce at 2**12 to
+     2**28: each routed time within 10% plus 0.010 ms of the faster
+     backend's; an inverted model flagged at 2**28; the 2**28 routed sort
+     on 1 + 4 launches; the host time of one routing decision; for the
+     record, the routes of the shipped table without its host probe's
+     scaling, against the times measured for them.
+Phases 3-9 check and time the kernels: each call passes backend="cuda", so
+that the router cannot turn a kernel check into one of torch against torch.
+No calibration file is read: the router uses the shipped table, and phase
+10 its own files.
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's line, and the one before that the JSON summary of the kernels.
 """
@@ -71,8 +86,10 @@ nvidia-smi's line, and the one before that the JSON summary of the kernels.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 20260
@@ -81,7 +98,12 @@ MAIN_N = 1 << 28
 VEC_U32 = (MAIN_N // 4, 4)
 VEC_F64 = (MAIN_N // 8, 4)
 K3_N = 16384  # K3's timed shape in the kernels line (its limit before the 8-bit redesign)
-CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536)
+CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536, 1 << 17, 1 << 18, 1 << 20)
+# the router guard's cycles of its 4 entries up to 2**22 elements (3 calls
+# of each a cycle), where the host's time is most of a call: on the H100 the
+# median of a routed entry read up to 14% off that of the backend it took
+# with 60 calls an entry, under 10% with 240 (PERF.md, the router's findings)
+GUARD_CYCLES = 80
 REPS = 3
 FOLD_REPS = 10
 # the least time of a kernel: the larger of its bytes over the memory rate
@@ -164,6 +186,205 @@ def _profile_kernels(torch, fn) -> list:
     return lines
 
 
+def _router_guard(torch, dev, gen, tag: str) -> None:
+    """Phase 10: the router guard. A quick calibration into a temporary
+    file; then, at each point, backend=None under the shipped table and
+    under that file against backend "cuda" and "torch", one call at a time
+    in an order in which each follows each other equally often, the median
+    of 240 calls each (GUARD_CYCLES; 15 above 2**22 elements). Every routed time
+    must be within 10% plus 0.010 ms of the faster backend's
+    (router.within_guard). A model with the crossover inverted must be
+    flagged at 2**28 pairs. Raises on a failure. Also prints, for the
+    record, where the shipped table without its host probe's scaling would
+    route each point, and whether the time measured for that backend would
+    be within the limit."""
+    import os
+    import tempfile
+
+    import glu_tpu_torch as glu
+    from glu_tpu_torch.ops import _cuda_reduce as cr
+    from glu_tpu_torch.ops import _cuda_sort as cs
+    from glu_tpu_torch.ops import router
+
+    t0 = time.perf_counter()
+    env = "GLU_TPU_TORCH_ROUTER_CALIBRATION"
+    saved = os.environ.get(env)
+    with tempfile.TemporaryDirectory(prefix="glu_router_") as tmp:
+        paths = {name: os.path.join(tmp, f"{name}.json") for name in ("shipped", "fresh", "inverted")}
+
+        def use(model: str) -> None:
+            os.environ[env] = paths[model]  # "shipped" names no file: the shipped table
+            router._reset_router_model()
+
+        t_cal = time.perf_counter()
+        fresh = router.calibrate(dev, quick=True, out=paths["fresh"], echo=lambda line: None)
+        print(f"router: fresh calibration (--quick, {time.perf_counter() - t_cal:.1f} s): {json.dumps(fresh)}")
+        shipped = router._H100_MODEL
+        print(f"router: shipped table: {json.dumps(shipped)}")
+        # the crossover inverted: the engine's host times 100x smaller, its per-key rates 100x larger
+        inverted = dict(shipped, k3_fixed_us=shipped["k3_fixed_us"] / 100,
+                        onesweep_fixed_us=shipped["onesweep_fixed_us"] / 100,
+                        onesweep_pass_us=shipped["onesweep_pass_us"] / 100,
+                        k3_ns_per_key_pass=[r * 100 for r in shipped["k3_ns_per_key_pass"]],
+                        onesweep_hist_ns_per_key=shipped["onesweep_hist_ns_per_key"] * 100,
+                        onesweep_ns_per_key_pass=[r * 100 for r in shipped["onesweep_ns_per_key_pass"]])
+        with open(paths["inverted"], "w") as f:
+            json.dump(inverted, f)
+
+        w = torch.randint(-(2**31), 2**31, (MAIN_N,), dtype=torch.int32, device=dev, generator=gen)
+        w2 = torch.randint(-(2**31), 2**31, (1 << 24,), dtype=torch.int32, device=dev, generator=gen)
+        iota = torch.arange(MAIN_N, dtype=torch.int32, device=dev)
+        u32 = lambda t: t.view(torch.uint32)  # noqa: E731
+
+        def offsets(n: int) -> torch.Tensor:
+            cuts = torch.sort(torch.randint(0, n + 1, (4095,), device=dev, generator=gen)).values
+            return torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)])
+
+        forms = {  # form -> n -> backend -> the call
+            "key/value": lambda n: lambda b: lambda: glu.radix_sort(u32(w[:n]), u32(iota[:n]), backend=b),
+            "keys-only": lambda n: lambda b: lambda: glu.radix_sort_keys(u32(w[:n]), backend=b),
+            "multi, 2 payloads": lambda n: lambda b: lambda: glu.radix_sort_multi(
+                u32(w[:n]), [u32(iota[:n]), u32(w2[:n])], backend=b),
+            "bits=range(8) (1 pass)": lambda n: lambda b: lambda: glu.radix_sort(
+                u32(w[:n]), u32(iota[:n]), bits=tuple(range(8)), backend=b),
+            "u64": lambda n: lambda b: lambda: glu.radix_sort_u64(w[: 2 * n].view(torch.uint64), u32(iota[:n]),
+                                                                  backend=b),
+            "segmented, 4096 offsets": lambda n: (lambda offs: lambda b: lambda: glu.radix_sort_segmented(
+                u32(w[:n]), u32(iota[:n]), offsets=offs, backend=b))(offsets(n)),
+            "reduce u32 SUM": lambda n: lambda b: lambda: glu.reduce(u32(w[:n]), backend=b),
+        }
+        points = [("key/value", n) for n in (1024, 16384, 24577, 49152, 65536, 1 << 18, 1 << 20, 1 << 22, 1 << 24,
+                                             MAIN_N)]
+        points += [(form, n) for form in ("keys-only", "multi, 2 payloads", "bits=range(8) (1 pass)", "u64",
+                                          "segmented, 4096 offsets") for n in (65536, 1 << 20, 1 << 24)]
+        points += [("reduce u32 SUM", n) for n in (1 << 12, 1 << 16, 1 << 20, MAIN_N)]
+
+        def launched(fn) -> tuple:
+            """(histogram, onesweep, K3, K5) launches of one call."""
+            torch.cuda.synchronize()
+            cs.reset_launch_counts()
+            cr.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            return (*cs.launch_counts().values(), cr.launch_counts()["reduce"])
+
+        # each model read once through the router's own loader (its host
+        # probe included), then swapped into the router's cache per call
+        cost = {}
+        for model in ("shipped", "fresh", "inverted"):
+            use(model)
+            cost[model] = router._cost_model(dev)
+            print(f"router: {model} model read, host times scaled by {cost[model].host_scale:.3f} {tag}")
+        cost["unscaled"] = router._CostModel(shipped)  # the shipped table as the calibration read it
+
+        flush = router.l2_flush(dev)
+
+        # the order of the calls of 4 entries: a cycle of 12 in which each
+        # entry follows each other entry once (every directed edge of K4). A
+        # call after one of the other backend runs up to a fifth slower on
+        # the H100 than after one of its own, so an order in which entries
+        # followed some entries more often than others would favour them.
+        cycle = (0, 1, 0, 2, 0, 3, 1, 2, 1, 3, 2, 3)
+
+        def cycles_ms(calls: dict, cycles: int) -> dict:
+            """Median ms of each (model, fn) of `calls` (1 or 4 of them),
+            timed one call at a time, each entry 3 times a cycle, so that
+            the host's drift is shared (a warm-up first); the L2 cache
+            flushed before each call, so that no call finds the inputs that
+            the one before it left there."""
+            names = list(calls)
+            for name in names:
+                if calls[name][0]:
+                    router._models[dev.index] = cost[calls[name][0]]
+                calls[name][1]()
+            times = {name: [] for name in names}
+            for _ in range(cycles):
+                for name in (names * 3 if len(names) == 1 else [names[i] for i in cycle]):
+                    model, fn = calls[name]
+                    if model:
+                        router._models[dev.index] = cost[model]
+                    flush()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    end.synchronize()
+                    times[name].append(start.elapsed_time(end))
+            return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+        failures, kv_times, main_launches, unscaled_over = [], {}, None, []
+        for form, n in points:
+            make = forms[form](n)
+            routes = {}
+            for model in ("shipped", "fresh", "unscaled"):
+                router._models[dev.index] = cost[model]
+                ran = launched(make(None))
+                routes[model] = "cuda" if sum(ran) else "torch"
+                if (form, n, model) == ("key/value", MAIN_N, "shipped"):
+                    main_launches = ran
+            got = cycles_ms({"cuda": (None, make("cuda")), "torch": (None, make("torch")),
+                             "shipped": ("shipped", make(None)), "fresh": ("fresh", make(None))},
+                            GUARD_CYCLES if n <= 1 << 22 else 5)
+            c_ms, t_ms = got["cuda"], got["torch"]
+            for model in ("shipped", "fresh"):
+                r_ms = got[model]
+                ok = router.within_guard(r_ms, c_ms, t_ms)
+                if not ok:
+                    failures.append(f"{form} n={n} {model}: routed {routes[model]} {r_ms:.4f} ms, cuda {c_ms:.4f}, "
+                                    f"torch {t_ms:.4f}")
+                limit = (1 + router.GUARD_REL) * min(c_ms, t_ms) + router.GUARD_ABS_MS
+                print(f"router guard {form} n={n} model={model}: route {routes[model]}, routed {r_ms:.4f} ms, "
+                      f"backend cuda {c_ms:.4f} ms, backend torch {t_ms:.4f} ms, "
+                      f"{'ok' if ok else 'OVER'} (limit {limit:.4f}) {tag}")
+            u_ms = c_ms if routes["unscaled"] == "cuda" else t_ms
+            if not router.within_guard(u_ms, c_ms, t_ms):
+                unscaled_over.append(f"{form} n={n}")
+            print(f"router unscaled {form} n={n}: the shipped table unscaled routes {routes['unscaled']}, measured "
+                  f"{u_ms:.4f} ms, {'ok' if router.within_guard(u_ms, c_ms, t_ms) else 'OVER'} {tag}")
+            if form == "key/value":
+                kv_times[n] = (make, c_ms, t_ms, got["shipped"])
+        _, c_ms, _, r_ms = kv_times[MAIN_N]
+        print(f"router: radix_sort 2^28 pairs backend=None {r_ms:.3f} ms against backend cuda {c_ms:.3f} ms in turns "
+              f"({100 * (r_ms / c_ms - 1):+.2f}%), launches histogram/onesweep/K3/K5 {main_launches} {tag}")
+        if main_launches != (1, 4, 0, 0):
+            failures.append(f"radix_sort 2^28 pairs backend=None launched {main_launches}, want (1, 4, 0, 0)")
+
+        flagged = []  # a guard that cannot fail is no guard
+        for n, (make, c_ms, t_ms, _) in kv_times.items():
+            r_ms = cycles_ms({"inverted": ("inverted", make(None))}, 5 if n <= 1 << 20 else 1)["inverted"]
+            if not router.within_guard(r_ms, c_ms, t_ms):
+                flagged.append(n)
+        print(f"router: the inverted model is flagged at key/value n in {flagged}")
+        print(f"router: without the host probe's scaling the shipped table would be over the limit at "
+              f"{unscaled_over or 'no point'} {tag}")
+        if MAIN_N not in flagged:
+            failures.append(f"the inverted model was not flagged at 2^28 pairs (flagged: {flagged})")
+
+        router._models[dev.index] = cost["shipped"]
+        k = u32(w[:1024])
+        calls = 20000
+        for label, fn in (("_sort_backend, K3 regime (1,024 pairs)", lambda: router._sort_backend(None, k, 1024, 1, 4, True)),
+                          ("_sort_backend, multi-tile regime (2^28 pairs)",
+                           lambda: router._sort_backend(None, k, MAIN_N, 1, 4, True)),
+                          ("_reduce_backend", lambda: router._reduce_backend(None, k))):
+            fn()
+            start = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            print(f"router: host time of one {label} decision: {(time.perf_counter() - start) / calls * 1e6:.2f} us "
+                  f"(mean of {calls}) {tag}")
+        del w, w2, iota, k
+    if saved is None:
+        os.environ.pop(env, None)
+    else:
+        os.environ[env] = saved
+    router._reset_router_model()
+    if failures:
+        raise AssertionError("router guard: " + "; ".join(failures))
+    print(f"router guard: every point within 10% + 0.010 ms of the faster backend, shipped table and fresh "
+          f"calibration ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -171,6 +392,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
+    # the shipped router table (no calibration file exists at this path), no override
+    os.environ["GLU_TPU_TORCH_ROUTER_CALIBRATION"] = os.path.join(tempfile.gettempdir(),
+                                                                  f"glu_tpu_torch_none_{os.getpid()}.json")
+    os.environ.pop("GLU_TPU_TORCH_BACKEND", None)
     import glu_tpu_torch
     from glu_tpu_torch import _build
     from glu_tpu_torch.ops import _cuda_sort as cs
@@ -288,7 +513,7 @@ def main() -> int:
         keys = as_u32(words(n, kd))
         values = as_u32(torch.arange(n, dtype=torch.int32, device=dev))
         before = cs.launch_counts()
-        out_k, out_v = glu_tpu_torch.radix_sort(keys, values, steps)
+        out_k, out_v = glu_tpu_torch.radix_sort(keys, values, steps, backend="cuda")
         torch.cuda.synchronize()
         after = cs.launch_counts()
         per_case[label] = {k: after[k] - before[k] for k in after}
@@ -421,7 +646,7 @@ def main() -> int:
             args, kw = make(n)
             torch.cuda.synchronize()
             cs.reset_launch_counts()
-            got = flat(fn(*args, **kw))
+            got = flat(fn(*args, backend="cuda", **kw))
             torch.cuda.synchronize()
             counts = cs.launch_counts()
             ran = tuple(counts[k] for k in kernel_order)
@@ -442,11 +667,12 @@ def main() -> int:
             print(f"sort variant {label}, n={n}: bit-identical to backend torch, launches "
                   f"histogram/onesweep/K3 {ran}")
             if n == full_n:
-                cuda_ms, torch_ms = turns(lambda: fn(*args, **kw), lambda: fn(*args, backend="torch", **kw))
+                cuda_ms, torch_ms = turns(lambda: fn(*args, backend="cuda", **kw),
+                                          lambda: fn(*args, backend="torch", **kw))
                 variant_times.append(f"time {label} ({n} pairs): backend cuda {cuda_ms:.3f} ms, "
                                      f"backend torch {torch_ms:.3f} ms {tag}")
                 if fn_name != "radix_sort_i32" and n == MAIN_N and "bits=(" not in label:
-                    for line in _profile_kernels(torch, lambda: fn(*args, **kw)):
+                    for line in _profile_kernels(torch, lambda: fn(*args, backend="cuda", **kw)):
                         variant_times.append(f"profile {label} ({n} pairs): {line} {tag}")
             del args, kw, got, ref
     for line in variant_times:
@@ -591,11 +817,11 @@ def main() -> int:
     u = as_u32(words(MAIN_N, "uniform"))
     csc.reset_launch_counts()
     cr.reset_launch_counts()
-    check_exact("exclusive_scan 2^28 u32 SUM", slice_call("exclusive_scan", lambda: glu_tpu_torch.exclusive_scan(u), (1, 0)),
+    check_exact("exclusive_scan 2^28 u32 SUM", slice_call("exclusive_scan", lambda: glu_tpu_torch.exclusive_scan(u, backend="cuda"), (1, 0)),
                 glu_tpu_torch.exclusive_scan(u, backend="torch"))
-    check_exact("inclusive_scan 2^28 u32 SUM", slice_call("inclusive_scan", lambda: glu_tpu_torch.inclusive_scan(u), (1, 0)),
+    check_exact("inclusive_scan 2^28 u32 SUM", slice_call("inclusive_scan", lambda: glu_tpu_torch.inclusive_scan(u, backend="cuda"), (1, 0)),
                 glu_tpu_torch.inclusive_scan(u, backend="torch"))
-    check_exact("reduce 2^28 u32 SUM", slice_call("reduce", lambda: glu_tpu_torch.reduce(u), (0, 1)),
+    check_exact("reduce 2^28 u32 SUM", slice_call("reduce", lambda: glu_tpu_torch.reduce(u, backend="cuda"), (0, 1)),
                 glu_tpu_torch.reduce(u, backend="torch"))
     u4 = u.view(VEC_U32)
     f4 = torch.rand(VEC_F64, dtype=torch.float64, device=dev, generator=gen) * 2 - 1
@@ -603,7 +829,7 @@ def main() -> int:
         torch.cuda.synchronize()
         in_use = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        got = slice_call(label, lambda: glu_tpu_torch.reduce(x, op), (0, 1))
+        got = slice_call(label, lambda: glu_tpu_torch.reduce(x, op, backend="cuda"), (0, 1))
         extra = torch.cuda.max_memory_allocated() - in_use
         if extra >= 1 << 20:
             raise AssertionError(f"{label}: allocated {extra} bytes beyond its input, a copy of it")
@@ -611,11 +837,11 @@ def main() -> int:
         print(f"main path {label}: {extra} bytes allocated beyond the {x.numel() * x.element_size()}-byte input")
     del u, u4, f4, got
     f = torch.rand(MAIN_N, dtype=torch.float32, device=dev, generator=gen)
-    check_exact("reduce 2^28 f32 MAX", slice_call("reduce f32", lambda: glu_tpu_torch.reduce(f, Op.MAX), (0, 1)),
+    check_exact("reduce 2^28 f32 MAX", slice_call("reduce f32", lambda: glu_tpu_torch.reduce(f, Op.MAX, backend="cuda"), (0, 1)),
                 torch.amax(f))
     del f
     g = torch.rand(1 << 24, dtype=torch.float32, device=dev, generator=gen)
-    exc = slice_call("exclusive_scan f32", lambda: glu_tpu_torch.exclusive_scan(g), (1, 0))
+    exc = slice_call("exclusive_scan f32", lambda: glu_tpu_torch.exclusive_scan(g, backend="cuda"), (1, 0))
     exact = torch.cumsum(g.double(), 0) - g.double()
     err = float((exc.double() - exact).abs().max())
     if not torch.allclose(exc.double(), exact, **FLOAT_TOL):
@@ -627,7 +853,7 @@ def main() -> int:
     v = as_u32(words(n_seg, "uniform"))
     cuts = torch.sort(torch.randint(0, n_seg + 1, (9_999,), device=dev, generator=gen)).values
     offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), cuts, torch.full((1,), n_seg, device=dev)])
-    seg = slice_call("segmented_reduce", lambda: glu_tpu_torch.segmented_reduce(v, offs), (1, 0))
+    seg = slice_call("segmented_reduce", lambda: glu_tpu_torch.segmented_reduce(v, offs, backend="cuda"), (1, 0))
     prefix = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(as_i64(v), 0)])
     want_seg = ((prefix[offs[1:]] - prefix[offs[:-1]]) & 0xFFFFFFFF).to(torch.int64)
     if not torch.equal(as_i64(seg), want_seg):
@@ -639,13 +865,15 @@ def main() -> int:
     buf = glu_tpu_torch.DeviceBuffer(host)  # the default device: the card
     if buf.device.type != "cuda":
         raise AssertionError(f"DeviceBuffer(numpy) went to {buf.device}, not the card")
-    scanned = slice_call("BlellochScan", lambda: glu_tpu_torch.BlellochScan(DataType.UINT)(buf, 1 << 18, 4), (1, 0))
+    scanned = slice_call("BlellochScan", lambda: glu_tpu_torch.BlellochScan(DataType.UINT)(buf, 1 << 18, 4, backend="cuda"),
+                         (1, 0))
     want_host = np.concatenate([np.cumsum(p, dtype=np.uint32) - p for p in host.reshape(4, -1)])
     if not (buf.get_data() == want_host).all() or scanned.data_ptr() != buf.data.data_ptr():
         raise AssertionError("BlellochScan on a DeviceBuffer: not the numpy exclusive scan, in place")
     print("main path BlellochScan(UINT) 4 x 2^18 on a default-device DeviceBuffer: in place, identical to numpy")
     buf = glu_tpu_torch.DeviceBuffer(host)
-    total = slice_call("Reduce", lambda: glu_tpu_torch.Reduce(DataType.UINT, Op.SUM)(buf, 1 << 20), (0, 1))
+    total = slice_call("Reduce", lambda: glu_tpu_torch.Reduce(DataType.UINT, Op.SUM)(buf, 1 << 20, backend="cuda"),
+                       (0, 1))
     if not int(total) == int(buf.get_data()[0]) == int(host.sum(dtype=np.uint32)):
         raise AssertionError("Reduce on a DeviceBuffer: not the numpy sum at buffer[0]")
     print("main path Reduce(UINT, SUM) 2^20 on a default-device DeviceBuffer: buffer[0] is the numpy sum")
@@ -659,11 +887,11 @@ def main() -> int:
     # -- 9. timings, for the record ----------------------------------------------
     keys = as_u32(words(MAIN_N, "uniform"))
     values = as_u32(torch.arange(MAIN_N, dtype=torch.int32, device=dev))
-    sort_ms, torch_ms = turns(lambda: glu_tpu_torch.radix_sort(keys, values),
+    sort_ms, torch_ms = turns(lambda: glu_tpu_torch.radix_sort(keys, values, backend="cuda"),
                               lambda: glu_tpu_torch.radix_sort(keys, values, backend="torch"))
     print(f"time radix_sort 2^28 pairs: port {sort_ms:.3f} ms = {MAIN_N / sort_ms / 1e3:.2f} M pairs/s; "
           f"torch.sort(stable)+gather {torch_ms:.3f} ms = {MAIN_N / torch_ms / 1e3:.2f} M pairs/s {tag}")
-    for line in _profile_kernels(torch, lambda: glu_tpu_torch.radix_sort(keys, values)):
+    for line in _profile_kernels(torch, lambda: glu_tpu_torch.radix_sort(keys, values, backend="cuda")):
         print(f"profile radix_sort (2^28 pairs): {line} {tag}")
     kw, vw = keys.view(torch.int32), values.view(torch.int32)
     del keys, values
@@ -687,7 +915,7 @@ def main() -> int:
         sk, sv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
         k3 = lambda: cs.sort_single_tile(sk, [sv], full)  # noqa: E731
         k3_ms, plain_ms = turns(k3, lambda: cs.sort_single_tile_ref(sk, [sv], full), reps=20)
-        api_ms = median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(sk), as_u32(sv)), reps=20)
+        api_ms = median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(sk), as_u32(sv), backend="cuda"), reps=20)
         lib_ms = median_ms(lambda: sort_and_gather(sk, sv), reps=20)
         print(f"time sort_single_tile ({n} pairs, 32 bits): wrapper {k3_ms:.4f} ms, host {host_us(k3):.1f} us "
               f"per call, radix_sort {api_ms:.4f} ms, torch.sort(stable)+gather {lib_ms:.4f} ms {tag}")
@@ -710,8 +938,9 @@ def main() -> int:
                    if n <= cs.SINGLE_TILE_MAX else "- (above its limit)")
         print(f"crossover n={n} (32-bit pairs, ms): sort_single_tile {k3_text}, histogram + onesweep "
               f"{median_ms(lambda: onesweep_path(ck, cv), reps=20):.4f}, torch.sort(stable)+gather "
-              f"{median_ms(lambda: sort_and_gather(ck, cv), reps=20):.4f}, radix_sort "
-              f"{median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv)), reps=20):.4f} {tag}")
+              f"{median_ms(lambda: sort_and_gather(ck, cv), reps=20):.4f}, radix_sort backend cuda "
+              f"{median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv), backend='cuda'), reps=20):.4f}"
+              f", routed {median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv)), reps=20):.4f} {tag}")
         del ck, cv
     pair_bytes = MAIN_N * 2 * 4
     bounds = {  # the function's bytes: the pass's status words are the design's, not counted
@@ -742,14 +971,14 @@ def main() -> int:
               f"plain torch {p_ms:.4f} ms, {call} {library[name]:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) {tag}")
     api = {
-        "exclusive_scan": turns(lambda: glu_tpu_torch.exclusive_scan(u), lambda: glu_tpu_torch.exclusive_scan(u, backend="torch"), reps=FOLD_REPS),
-        "inclusive_scan": turns(lambda: glu_tpu_torch.inclusive_scan(u), lambda: glu_tpu_torch.inclusive_scan(u, backend="torch"), reps=FOLD_REPS),
-        "reduce": turns(lambda: glu_tpu_torch.reduce(u), lambda: glu_tpu_torch.reduce(u, backend="torch"), reps=FOLD_REPS),
+        name: turns(lambda fn=fn: fn(u, backend="cuda"), lambda fn=fn: fn(u, backend="torch"), reps=FOLD_REPS)
+        for name, fn in (("exclusive_scan", glu_tpu_torch.exclusive_scan),
+                         ("inclusive_scan", glu_tpu_torch.inclusive_scan), ("reduce", glu_tpu_torch.reduce))
     }
     for name, (k_ms, t_ms) in api.items():
         print(f"time glu_tpu_torch.{name} (2^28 u32 SUM): backend cuda {k_ms:.4f} ms, backend torch {t_ms:.4f} ms {tag}")
     for label, fn in (("K5 wrapper reduce_partitions (1, 2^28) u32 SUM", lambda: cr.reduce_partitions(u2, Op.SUM)),
-                      ("glu_tpu_torch.reduce 2^28 u32 SUM", lambda: glu_tpu_torch.reduce(u)),
+                      ("glu_tpu_torch.reduce 2^28 u32 SUM", lambda: glu_tpu_torch.reduce(u, backend="cuda")),
                       ("torch.sum(int32) 2^28", lambda: torch.sum(w32, dtype=torch.int32))):
         print(f"host {label}: {host_us(fn):.2f} us per call {tag}")
     for label, fn in (("exclusive_scan", lambda: csc.exclusive_scan_partitions(u2, Op.SUM)),
@@ -759,18 +988,22 @@ def main() -> int:
     u4, w4 = u.view(VEC_U32), w32.view(VEC_U32)
     f4 = torch.rand(VEC_F64, dtype=torch.float64, device=dev, generator=gen)
     for label, fn, lib_fn, lib_name in (
-            ("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4), lambda: torch.sum(w4, 0, dtype=torch.int32),
+            ("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4, backend="cuda"),
+             lambda: torch.sum(w4, 0, dtype=torch.int32),
              "torch.sum(x, 0, dtype=int32)"),
-            ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN), lambda: torch.amin(f4, 0),
+            ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN, backend="cuda"), lambda: torch.amin(f4, 0),
              "torch.amin(x, 0)")):
         k_ms, t_ms = turns(fn, lib_fn, reps=FOLD_REPS)
         print(f"time glu_tpu_torch.reduce {label}: {k_ms:.4f} ms, {lib_name} {t_ms:.4f} ms, "
               f"bound {bounds['reduce'][0]:.4f} ms (bytes) {tag}")
-    for label, fn in (("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4)),
-                      ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN))):
+    for label, fn in (("(2^26, 4) u32 SUM", lambda: glu_tpu_torch.reduce(u4, backend="cuda")),
+                      ("(2^25, 4) f64 MIN", lambda: glu_tpu_torch.reduce(f4, Op.MIN, backend="cuda"))):
         for line in _profile_kernels(torch, fn):
             print(f"profile glu_tpu_torch.reduce ({label}): {line} {tag}")
     del u, u2, w32, u4, w4, f4
+
+    # -- 10. the router guard ----------------------------------------------------
+    _router_guard(torch, dev, gen, tag)
 
     kernels = {  # name: (source, TPU kernel it replaces)
         "digit_histograms": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:256"),

@@ -8,7 +8,9 @@ csrc/radix_sort.cu), and its variants on the same engine (keys-only,
 multi-payload, argsort, f32/i32/u64 keys, `descending=`, `bits=`,
 segmented); the reduce (`reduce`, `segmented_reduce`, `Reduce`,
 kernel K5 in csrc/reduce.cu) and the scan (`exclusive_scan`,
-`inclusive_scan`, `BlellochScan`, kernel K4 in csrc/scan.cu). A function
+`inclusive_scan`, `BlellochScan`, kernel K4 in csrc/scan.cu), and the
+router that picks the kernels or torch's call for a sort or reduce given
+`backend=None`, by a cost model measured per card (ops/router.py). A function
 given a tensor works on the tensor's device; a function that makes a tensor
 (`from_numpy`, `DeviceBuffer`, `RadixSort.prepare_internal_buffers`) puts
 it on the card unless given `device=`. The package imports torch and never

@@ -8,7 +8,8 @@ reduce (`reduce`, `segmented_reduce`, `Reduce`) and the scan
 (`exclusive_scan`, `inclusive_scan`, `BlellochScan`), each with two
 backends: "cuda" (the hand-written Hopper kernels; their plain torch
 versions on a CPU tensor) and "torch" (torch's own sort, scans and
-reductions).
+reductions), and the router (router.py), which picks one of them for a
+sort or reduce of a CUDA tensor given backend=None.
 """
 
 from .radix_sort import (

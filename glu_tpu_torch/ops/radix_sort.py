@@ -176,16 +176,18 @@ def _norm_steps(num_steps) -> int:
     return steps
 
 
-def _norm_bits(bits, words: torch.Tensor, num_steps, backend: str):
+def _norm_bits(bits, words: torch.Tensor, num_steps, backend):
     """Resolve the `bits` parameter: None -> None (the num_steps contract),
     "auto" -> the varying bits of `words` (a host sync), an iterable ->
-    validated positions. Mutually exclusive with a partial num_steps."""
+    validated positions. Mutually exclusive with a partial num_steps.
+    `backend` is the caller's: the envelope of a CUDA tensor is found by
+    the kernel unless "torch" was asked for, whatever the router picks."""
     if bits is None:
         return None
     check_argument(num_steps in (0, None, NUM_PASSES), "bits cannot be combined with a partial num_steps")
     if isinstance(bits, str):
         check_argument(bits == "auto", 'bits must be None, "auto", or bit positions')
-        return _varying_bits(words, backend)
+        return _varying_bits(words, resolve_backend(backend, words))
     positions = tuple(int(b) for b in bits)
     for p in positions:
         check_argument(0 <= p < 32, "bit positions must be in 0..31, got %d", p)
@@ -193,18 +195,23 @@ def _norm_bits(bits, words: torch.Tensor, num_steps, backend: str):
     return positions
 
 
-def _sort_words(words, payloads, backend: str, *, num_steps=0, descending: bool = False, bits=None):
+def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None):
     """Sort int32-carried u32 keys (already in their sortable form) with
     payloads: high to low through the complement, which keeps ties in input
     order and the set of varying bits; `bits` refers to the complemented
-    key. Returns (keys, list of payloads)."""
+    key. The bit positions come first, then the route (ops/router.py), on
+    (n, payloads, passes, whether the bits are the whole key): bits="auto"
+    has synchronised the host by then. Returns (keys, list of payloads)."""
+    from .router import _npasses_of, _sort_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
+
     steps = _norm_steps(num_steps)
     if descending:
         words = ~words
     positions = _norm_bits(bits, words, num_steps, backend)
     if positions is None:
         positions = tuple(range(steps * RADIX_BITS))
-    out_k, outs = _radix_sort_streams(words, payloads, positions, backend)
+    b = _sort_backend(backend, words, words.numel(), len(payloads), _npasses_of(positions), positions == FULL)
+    out_k, outs = _radix_sort_streams(words, payloads, positions, b)
     return (~out_k if descending else out_k), outs
 
 
@@ -261,8 +268,11 @@ def radix_sort(
     The sort works out of place: the inputs are not modified, and the
     results are new tensors except where there is nothing to sort (n <= 1,
     bits=() or bits="auto" on equal keys), when `values` (and, ascending,
-    `keys`) come back as they are. backend: None or "cuda" for the radix
-    engine, "torch" for one stable torch.sort.
+    `keys`) come back as they are. backend: "cuda" for the radix engine,
+    "torch" for one stable torch.sort, None for the override
+    GLU_TPU_TORCH_BACKEND or, on a CUDA tensor, the router's choice by the
+    card's cost model (ops/router.py; on a CPU tensor "cuda"). The route is
+    chosen after bits="auto" has found the bits to sort.
     """
     _check_inputs(keys, torch.uint32, values=values)
     check_argument(
@@ -271,9 +281,8 @@ def radix_sort(
     )
     if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
         return keys, values
-    b = resolve_backend(backend, keys)
     out_k, (out_v,) = _sort_words(
-        _words(keys), [_words(values)], b, num_steps=num_steps, descending=descending, bits=bits
+        _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
     )
     return _u32(out_k), _u32(out_v)
 
@@ -285,7 +294,7 @@ def radix_sort_keys(keys: torch.Tensor, num_steps: int = 0, *, backend: str | No
     _check_inputs(keys, torch.uint32)
     if keys.shape[0] <= 1:
         return keys
-    out_k, _ = _sort_words(_words(keys), [], resolve_backend(backend, keys), num_steps=num_steps, bits=bits)
+    out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
     return _u32(out_k)
 
 
@@ -303,9 +312,7 @@ def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backen
     _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
     if keys.shape[0] <= 1:
         return keys, payloads
-    out_k, outs = _sort_words(
-        _words(keys), [_words(p) for p in payloads], resolve_backend(backend, keys), num_steps=num_steps, bits=bits
-    )
+    out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
     return _u32(out_k), tuple(_u32(p) for p in outs)
 
 
@@ -355,9 +362,9 @@ def radix_sort_f32(
     _check_inputs(keys, torch.float32, values=values)
     if keys.shape[0] <= 1:
         return keys, values
-    b = resolve_backend(backend, keys)
     out_k, (out_v,) = _sort_words(
-        _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], b, descending=descending, bits=bits
+        _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
+        bits=bits,
     )
     return _sortable_to_f32(out_k), _u32(out_v)
 
@@ -379,12 +386,25 @@ def radix_sort_i32(
     _check_inputs(keys, torch.int32, values=values)
     if keys.shape[0] <= 1:
         return keys, values
-    b = resolve_backend(backend, keys)
-    out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], b, descending=descending, bits=bits)
+    out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
+                                  bits=bits)
     return out_k ^ _SIGN, _u32(out_v)
 
 
-def _u64_positions(bits, hi: torch.Tensor, lo: torch.Tensor, backend: str) -> tuple:
+def _sort_u64_words(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, bits, backend):
+    """The u64 sort of int32-carried words: the positions of each word,
+    then the route (ops/router.py::_u64_backend), then the two-word sort.
+    Returns (hi, lo, values)."""
+    from .router import _npasses_of, _u64_backend
+
+    pos_hi, pos_lo = _u64_positions(bits, hi, lo, backend)
+    extra_ops = sum(1 for pos in (pos_hi, pos_lo) if pos and pos != FULL)
+    b = _u64_backend(backend, hi, hi.numel(), _npasses_of(pos_hi), _npasses_of(pos_lo), extra_ops)
+    out_hi, out_lo, (out_v,) = _sort_two_words(hi, lo, pos_hi, pos_lo, [_words(values)], b)
+    return out_hi, out_lo, out_v
+
+
+def _u64_positions(bits, hi: torch.Tensor, lo: torch.Tensor, backend) -> tuple:
     """(hi positions, lo positions): full words, the varying bits of each
     word for "auto", or an explicit (hi_positions, lo_positions) pair."""
     if bits is None or isinstance(bits, str):
@@ -424,10 +444,7 @@ def radix_sort_u64_parts(
     _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
     if keys_hi.shape[0] <= 1:
         return keys_hi, keys_lo, values
-    b = resolve_backend(backend, keys_hi)
-    hi, lo = _words(keys_hi), _words(keys_lo)
-    pos_hi, pos_lo = _u64_positions(bits, hi, lo, b)
-    out_hi, out_lo, (out_v,) = _sort_two_words(hi, lo, pos_hi, pos_lo, [_words(values)], b)
+    out_hi, out_lo, out_v = _sort_u64_words(_words(keys_hi), _words(keys_lo), values, bits, backend)
     return _u32(out_hi), _u32(out_lo), _u32(out_v)
 
 
@@ -440,11 +457,8 @@ def radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, *, backend: str | N
     _check_inputs(keys, torch.uint64, values=values)
     if keys.shape[0] <= 1:
         return keys, values
-    b = resolve_backend(backend, keys)
     pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
-    hi, lo = pairs[:, 1].contiguous(), pairs[:, 0].contiguous()
-    pos_hi, pos_lo = _u64_positions(bits, hi, lo, b)
-    out_hi, out_lo, (out_v,) = _sort_two_words(hi, lo, pos_hi, pos_lo, [_words(values)], b)
+    out_hi, out_lo, out_v = _sort_u64_words(pairs[:, 1].contiguous(), pairs[:, 0].contiguous(), values, bits, backend)
     out = torch.empty_like(pairs)
     out[:, 0], out[:, 1] = out_lo, out_hi
     return out.view(torch.uint64).view(-1), _u32(out_v)
@@ -524,12 +538,16 @@ def _radix_sort_segmented_offsets(keys, values, offsets, backend, bits):
 
 
 def _segmented_sort(keys, values, seg, num_segments: int, backend, bits):
-    b = resolve_backend(backend, keys)
+    """The two-word sort by (segment id, key), routed by
+    ops/router.py::_segmented_backend once the key's positions are known."""
+    from .router import _npasses_of, _segmented_backend
+
     k = _words(keys)
-    positions = _norm_bits(bits, k, 0, b)
-    _, out_k, (out_v,) = _sort_two_words(
-        seg, k, _seg_bits(num_segments), FULL if positions is None else positions, [_words(values)], b
-    )
+    positions = _norm_bits(bits, k, 0, backend)
+    positions = FULL if positions is None else positions
+    seg_pos = _seg_bits(num_segments)
+    b = _segmented_backend(backend, k, k.numel(), _npasses_of(positions), _npasses_of(seg_pos), positions == FULL)
+    _, out_k, (out_v,) = _sort_two_words(seg, k, seg_pos, positions, [_words(values)], b)
     return _u32(out_k), _u32(out_v)
 
 
@@ -552,8 +570,10 @@ class RadixSort:
     ) -> None:
         """Warm the sort for `count` pairs on `device` (default: the card;
         raises when there is none)."""
+        from .router import _npasses_of, _sort_backend
+
         k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
-        b = resolve_backend(backend, k)
+        b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
         key = (count, b, k.device)
         if count <= 1 or key in self._warm:
             return

@@ -29,7 +29,6 @@ import torch
 from ..utils.buffers import DeviceBuffer, _words
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
-from .backend import resolve_backend
 
 
 class ReduceOperator(enum.Enum):
@@ -167,14 +166,19 @@ def reduce(x: torch.Tensor, op: ReduceOperator = ReduceOperator.SUM, *, backend:
     """Reduce x along axis 0. x: (N,) scalar stream or (N, C) vector stream.
 
     Any N >= 1. Returns a 0-d tensor (or (C,) for vectors) of x's dtype on
-    x's device; the input is untouched. backend: None or "cuda" for the K5
-    kernel, "torch" for one torch reduction.
+    x's device; the input is untouched. backend: "cuda" for the K5 kernel,
+    "torch" for one torch reduction, None for the override
+    GLU_TPU_TORCH_BACKEND or, on a CUDA tensor, the router's choice by the
+    card's cost model (ops/router.py::_reduce_backend; on a CPU tensor
+    "cuda").
     """
+    from .router import _reduce_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
+
     check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
     check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", tuple(x.shape))
     check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
     check_kernel_dtype(x.dtype)
-    return _reduce_impl(x, op, resolve_backend(backend, x))
+    return _reduce_impl(x, op, _reduce_backend(backend, x))
 
 
 def segmented_reduce(
@@ -193,7 +197,9 @@ def segmented_reduce(
     Integer SUM: boundary differences of ONE inclusive scan (K4 on the
     "cuda" backend), exact in the wrapping ring. Every other (op, dtype)
     takes the flagged-combine segmented scan (scan.py::_flagged_scan) and
-    picks each segment's last inclusive value.
+    picks each segment's last inclusive value. backend goes to
+    inclusive_scan, which has no router (as in the JAX package): None is
+    the override GLU_TPU_TORCH_BACKEND or "cuda".
     """
     check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
     check_argument(x.ndim == 1, "segmented_reduce expects a 1-D array, got shape %s", tuple(x.shape))

@@ -175,7 +175,9 @@ def exclusive_scan(
     segment independently (see _segmented_scan_offsets); 1-D only, and
     mutually exclusive with num_partitions > 1.
 
-    backend: None or "cuda" for the K4 kernel, "torch" for torch's scans.
+    backend: "cuda" for the K4 kernel, "torch" for torch's scans, None for
+    the override GLU_TPU_TORCH_BACKEND or "cuda" (the scans have no router,
+    as in the JAX package).
     """
     _check_scan_args(x, num_partitions, op)
     if offsets is not None:

@@ -121,7 +121,7 @@ def test_radix_sort_at_the_single_tile_limit(dev, n, calls):
     keys = _words("uniform", n, dev).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     before = cs.launch_counts()
-    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals)
+    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals, backend="cuda")
     after = cs.launch_counts()
     ref_k, ref_v = glu_tpu_torch.radix_sort(keys, vals, backend="torch")
     _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
@@ -134,7 +134,7 @@ def test_radix_sort_matches_torch_sort(dev, n):
     keys = _words("uniform", n, dev).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     before = cs.launch_counts()
-    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals)
+    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals, backend="cuda")
     after = cs.launch_counts()
     ref_k, ref_v = glu_tpu_torch.radix_sort(keys, vals, backend="torch")
     _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
@@ -142,6 +142,40 @@ def test_radix_sort_matches_torch_sort(dev, n):
     assert after["digit_histograms"] - before["digit_histograms"] == 1
     assert after["onesweep_pass"] - before["onesweep_pass"] == 4
     assert after["sort_single_tile"] - before["sort_single_tile"] == 0
+
+
+@pytest.fixture
+def shipped_table(monkeypatch, tmp_path):
+    """The router on the shipped table (no calibration file), read as a
+    routed call reads it, and no override."""
+    from glu_tpu_torch.ops import router
+
+    monkeypatch.setenv("GLU_TPU_TORCH_ROUTER_CALIBRATION", str(tmp_path / "absent.json"))
+    monkeypatch.delenv("GLU_TPU_TORCH_BACKEND", raising=False)
+    router._reset_router_model()
+    yield router
+    router._reset_router_model()
+
+
+@pytest.mark.parametrize("n,route", [(49_152, "torch"), (1 << 22, None), (1 << 24, "cuda")])
+def test_routed_radix_sort_launches(dev, shipped_table, n, route):
+    # backend=None launches what the shipped table's route says: no kernel
+    # at 49,152 pairs, where the engine's host steps cost more than
+    # torch.sort, 1 + 4 launches at 2^24; 2^22 lies near the measured
+    # crossover, which moves with the host's speed (the table's host times
+    # are scaled by this host's probe), so there either route may be right
+    keys = _words("uniform", n, dev).view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    chosen = shipped_table._sort_backend(None, keys, n, 1, 4, True)
+    assert route in (None, chosen)
+    before = cs.launch_counts()
+    out_k, out_v = glu_tpu_torch.radix_sort(keys, vals)
+    after = cs.launch_counts()
+    ref_k, ref_v = glu_tpu_torch.radix_sort(keys, vals, backend="torch")
+    _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
+                 [ref_k.view(torch.int32), ref_v.view(torch.int32)])
+    launched = tuple(after[k] - before[k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile"))
+    assert launched == ((1, 4, 0) if chosen == "cuda" else (0, 0, 0))
 
 
 def test_buffers_and_timing_on_card(dev):
@@ -170,8 +204,8 @@ def test_radix_sort_class_on_card(dev):
     kbuf = glu_tpu_torch.DeviceBuffer(keys, device=dev)
     vbuf = glu_tpu_torch.DeviceBuffer(vals, device=dev)
     sorter = glu_tpu_torch.RadixSort()
-    sorter.prepare_internal_buffers(n, device=dev)
-    sorter(kbuf, vbuf, n - 7)
+    sorter.prepare_internal_buffers(n, device=dev, backend="cuda")
+    sorter(kbuf, vbuf, n - 7, backend="cuda")
     order = np.argsort(keys[: n - 7], kind="stable")
     np.testing.assert_array_equal(kbuf.get_data(), np.r_[keys[order], keys[n - 7:]])
     np.testing.assert_array_equal(vbuf.get_data(), np.r_[order, vals[n - 7:]])
@@ -439,15 +473,16 @@ def test_reduce_and_scan_entry_points_match_torch(dev, op):
     # the (N, 4) layout of UVEC4
     for shape in [(1 << 20,), (100_003, 4), (100_003, 2), (100_003, 3)]:
         x = _fold_input(torch.uint32, op, (1, int(np.prod(shape))), dev).reshape(shape)
-        _assert_close(glu_tpu_torch.reduce(x, op), glu_tpu_torch.reduce(x, op, backend="torch"))
+        _assert_close(glu_tpu_torch.reduce(x, op, backend="cuda"), glu_tpu_torch.reduce(x, op, backend="torch"))
         for fn in (glu_tpu_torch.exclusive_scan, glu_tpu_torch.inclusive_scan):
-            _assert_close(fn(x, op=op), fn(x, op=op, backend="torch"))
+            _assert_close(fn(x, op=op, backend="cuda"), fn(x, op=op, backend="torch"))
     n = 1 << 20
     x = _fold_input(torch.uint32, op, (1, n), dev).reshape(n)
     cuts = np.sort(np.random.default_rng(op.value).integers(0, n + 1, 999))
     offs = torch.from_numpy(np.concatenate([[0], cuts, [n]])).to(dev)
-    _assert_close(glu_tpu_torch.segmented_reduce(x, offs, op), glu_tpu_torch.segmented_reduce(x, offs, op, backend="torch"))
-    _assert_close(glu_tpu_torch.exclusive_scan(x, op=op, offsets=offs),
+    _assert_close(glu_tpu_torch.segmented_reduce(x, offs, op, backend="cuda"),
+                  glu_tpu_torch.segmented_reduce(x, offs, op, backend="torch"))
+    _assert_close(glu_tpu_torch.exclusive_scan(x, op=op, offsets=offs, backend="cuda"),
                   glu_tpu_torch.exclusive_scan(x, op=op, offsets=offs, backend="torch"))
 
 
@@ -456,10 +491,10 @@ def test_reduce_and_scan_classes_on_default_device(dev):
     data = np.random.default_rng(5).integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
     buf = glu_tpu_torch.DeviceBuffer(data)
     assert buf.device.type == "cuda"
-    glu_tpu_torch.BlellochScan(glu_tpu_torch.DataType.UINT)(buf, 1 << 15, 2)
+    glu_tpu_torch.BlellochScan(glu_tpu_torch.DataType.UINT)(buf, 1 << 15, 2, backend="cuda")
     want = np.concatenate([np.cumsum(p, dtype=np.uint32) - p for p in data.reshape(2, -1)])
     np.testing.assert_array_equal(buf.get_data(), want)
     buf = glu_tpu_torch.DeviceBuffer(data)
-    result = glu_tpu_torch.Reduce(glu_tpu_torch.DataType.UINT, ReduceOperator.MAX)(buf, 1000)
+    result = glu_tpu_torch.Reduce(glu_tpu_torch.DataType.UINT, ReduceOperator.MAX)(buf, 1000, backend="cuda")
     assert int(result) == int(data[:1000].max()) == int(buf.get_data()[0])
     np.testing.assert_array_equal(buf.get_data()[1:], data[1:])

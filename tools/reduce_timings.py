@@ -7,8 +7,8 @@
 example one unpacked with `git archive` into smoke_checkout/, which
 .gitignore lists), so that two commits can be timed on one card in turns,
 one process each. Only entry points that every version of the package has
-are called: glu_tpu_torch.reduce and _cuda_reduce.reduce_partitions on a
-(1, N) row.
+are called: glu_tpu_torch.reduce with backend="cuda" (K5, never a route to
+torch) and _cuda_reduce.reduce_partitions on a (1, N) row.
 
 Prints the card's name and power limit, then one line each for:
   - the device time (CUDA events around the call, median of REPS after a
@@ -99,7 +99,7 @@ def main() -> int:
     w = words(1 << 28)
     u = w.view(torch.uint32)
     u2 = u.view(1, -1)
-    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(u))
+    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(u, backend="cuda"))
     lib_ms = median_ms(torch, lambda: torch.sum(w, dtype=torch.int32))
     print(f"time reduce 2^28 u32 SUM: glu_tpu_torch.reduce {glu_ms:.4f} ms, torch.sum(int32) {lib_ms:.4f} ms {tag}")
     one = torch.empty(0, dtype=torch.int32, device=dev)
@@ -110,7 +110,7 @@ def main() -> int:
 
     steps = {
         "K5 wrapper reduce_partitions (1, 2^28)": lambda: cr.reduce_partitions(u2, Op.SUM),
-        "glu_tpu_torch.reduce 2^28": lambda: glu_tpu_torch.reduce(u),
+        "glu_tpu_torch.reduce 2^28": lambda: glu_tpu_torch.reduce(u, backend="cuda"),
         "torch.sum(int32) 2^28": lambda: torch.sum(w, dtype=torch.int32),
         "step: check_partitions": lambda: cr.check_partitions(u2),
         "step: torch.empty((1,))": lambda: torch.empty((1,), dtype=torch.uint32, device=dev),
@@ -146,23 +146,23 @@ def main() -> int:
 
     x = words(1 << 28).view(torch.uint32).view(1 << 26, 4)
     xw = x.view(torch.int32)
-    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(x))
+    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(x, backend="cuda"))
     lib_ms = median_ms(torch, lambda: torch.sum(xw, 0, dtype=torch.int32))
     print(f"time reduce (2^26, 4) u32 SUM: glu_tpu_torch.reduce {glu_ms:.4f} ms, "
           f"torch.sum(x, 0, dtype=int32) {lib_ms:.4f} ms {tag}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    glu_tpu_torch.reduce(x)
+    glu_tpu_torch.reduce(x, backend="cuda")
     torch.cuda.synchronize()
     print(f"memory reduce (2^26, 4) u32 SUM: {torch.cuda.max_memory_allocated() - base} bytes allocated at the "
           f"peak beyond the 1 GiB input {tag}")
-    for line in _profile_kernels(torch, lambda: glu_tpu_torch.reduce(x)):
+    for line in _profile_kernels(torch, lambda: glu_tpu_torch.reduce(x, backend="cuda")):
         print(f"profile reduce (2^26, 4) u32 SUM: {line} {tag}")
     del x, xw
 
     f = torch.rand((1 << 25, 4), dtype=torch.float64, device=dev, generator=gen)
-    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(f, Op.MIN))
+    glu_ms = median_ms(torch, lambda: glu_tpu_torch.reduce(f, Op.MIN, backend="cuda"))
     lib_ms = median_ms(torch, lambda: torch.amin(f, 0))
     print(f"time reduce (2^25, 4) f64 MIN: glu_tpu_torch.reduce {glu_ms:.4f} ms, torch.amin(x, 0) {lib_ms:.4f} ms {tag}")
     return 0
