@@ -14,7 +14,9 @@ Phases, each of which raises (exit code 1) on any failure:
      keys, 8-bit, 1-bit, top-byte and non-contiguous digits, 0, 1 and 7
      payloads; K3 at n = 1, 2, 1000, 10000 and its limit SINGLE_TILE_MAX
      with 32 bits (4 passes of 8), 12 bits (8 + 4), the top byte and 5
-     scattered bits;
+     scattered bits; and the one-call multi-tile sort (onesweep_sort, which
+     radix_sort runs) against the two wrappers it runs, pass by pass, with
+     1, 2 and 4 passes, at the small ragged shape and at 2**28 pairs;
   4. the sort's main path: glu_tpu_torch.radix_sort on 2**28 u32 key/value
      pairs and on smaller and edge-case inputs, bit for bit against
      radix_sort(..., backend="torch") (one stable torch.sort) on the card;
@@ -62,9 +64,11 @@ Phases, each of which raises (exit code 1) on any failure:
      torch.amin(x, 0); the host time per call of K5's wrapper and of
      torch.sum; K3's kernel alone (profiler), its wrapper, its host time per
      call and radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the
-     crossover table of K3, the histogram + onesweep path,
-     torch.sort(stable) + gather, radix_sort on the kernels and routed, from
-     1,024 to 2**20 pairs;
+     crossover table of K3, the histogram + onesweep path through the
+     per-pass wrappers, torch.sort(stable) + gather, radix_sort on the
+     kernels (one library call) and routed, from 1,024 to 2**20 pairs, and
+     the 2**28-pair multi-tile sort as one call against the per-pass
+     wrappers, in turns;
  10. the router guard (_router_guard): a quick calibration into a temporary
      file, then backend=None under the shipped table and under that file
      against backend "cuda" and "torch", in turns, for key/value sorts from
@@ -72,10 +76,19 @@ Phases, each of which raises (exit code 1) on any failure:
      4,096 segments at 65,536, 2**20 and 2**24, and reduce at 2**12 to
      2**28: each routed time within 10% plus 0.010 ms of the faster
      backend's; an inverted model flagged at 2**28; the 2**28 routed sort
-     on 1 + 4 launches; the host time of one routing decision; for the
-     record, the routes of the shipped table without its host probe's
-     scaling, against the times measured for them.
-Phases 3-9 check and time the kernels: each call passes backend="cuda", so
+     on 1 + 4 launches; the host time of one routing decision;
+ 11. the distributed layer (_distributed_layer): on a 1-rank NCCL group,
+     distributed_radix_sort of 2**28 pairs (1 + 4 launches), its f32, i32
+     and u64 forms at 2**24 and 10,000 pairs (K3 alone), distributed_reduce
+     and the distributed scans of 2**28 u32 SUM, each bit for bit against
+     its single-card call, with the launch counts set to 0 before and read
+     after, and a CPU tensor on the group raising; every rank's stages at
+     D = 4 and 8 of a 2**28-pair global array in this process (the NCCL
+     transfer replaced by slicing along ragged_exchange_plan), joined bit
+     for bit against radix_sort(backend="torch"); timings of the 1-rank sort
+     against radix_sort and of rank 0's _bucket_of, partition and local
+     sort at D = 4 beside their bounds. Its launches join the kernels line.
+Phases 3-9 and 11 check and time the kernels: each call passes backend="cuda", so
 that the router cannot turn a kernel check into one of torch against torch.
 No calibration file is read: the router uses the shipped table, and phase
 10 its own files.
@@ -104,6 +117,11 @@ CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536, 1 << 17, 1 << 18, 1 << 20
 # median of a routed entry read up to 14% off that of the backend it took
 # with 60 calls an entry, under 10% with 240 (PERF.md, the router's findings)
 GUARD_CYCLES = 80
+# and above 2**22 to 2**24, where one call is still under a millisecond: 5
+# cycles (15 calls) once read a routed 1-pass sort of 2**24 23% off the same
+# path's "cuda" on the H100 (PERF.md, the distributed layer's findings);
+# 2**28 keeps 5
+GUARD_CYCLES_TO_2_24 = 20
 REPS = 3
 FOLD_REPS = 10
 # the least time of a kernel: the larger of its bytes over the memory rate
@@ -112,6 +130,12 @@ FOLD_REPS = 10
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-3)
+# phase 11: the simulated ranks of a 2**28-pair global array, the samples a
+# rank (the default of distributed_radix_sort) and the small sort (K3 alone)
+DIST_WORLD_SIZES = (4, 8)
+DIST_SAMPLES = 8192
+DIST_SMALL_N = 10_000
+DIST_VARIANT_N = 1 << 24  # the f32, i32 and u64 distributed sorts
 
 
 def _bound(nbytes: float, ops: float):
@@ -191,13 +215,10 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
     file; then, at each point, backend=None under the shipped table and
     under that file against backend "cuda" and "torch", one call at a time
     in an order in which each follows each other equally often, the median
-    of 240 calls each (GUARD_CYCLES; 15 above 2**22 elements). Every routed time
+    of 240 calls each (GUARD_CYCLES; 60 to 2**24, 15 above). Every routed time
     must be within 10% plus 0.010 ms of the faster backend's
     (router.within_guard). A model with the crossover inverted must be
-    flagged at 2**28 pairs. Raises on a failure. Also prints, for the
-    record, where the shipped table without its host probe's scaling would
-    route each point, and whether the time measured for that backend would
-    be within the limit."""
+    flagged at 2**28 pairs. Raises on a failure."""
     import os
     import tempfile
 
@@ -268,14 +289,12 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
             torch.cuda.synchronize()
             return (*cs.launch_counts().values(), cr.launch_counts()["reduce"])
 
-        # each model read once through the router's own loader (its host
-        # probe included), then swapped into the router's cache per call
+        # each model read once through the router's own loader, then swapped
+        # into the router's cache per call
         cost = {}
         for model in ("shipped", "fresh", "inverted"):
             use(model)
             cost[model] = router._cost_model(dev)
-            print(f"router: {model} model read, host times scaled by {cost[model].host_scale:.3f} {tag}")
-        cost["unscaled"] = router._CostModel(shipped)  # the shipped table as the calibration read it
 
         flush = router.l2_flush(dev)
 
@@ -312,11 +331,11 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
                     times[name].append(start.elapsed_time(end))
             return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
 
-        failures, kv_times, main_launches, unscaled_over = [], {}, None, []
+        failures, kv_times, main_launches = [], {}, None
         for form, n in points:
             make = forms[form](n)
             routes = {}
-            for model in ("shipped", "fresh", "unscaled"):
+            for model in ("shipped", "fresh"):
                 router._models[dev.index] = cost[model]
                 ran = launched(make(None))
                 routes[model] = "cuda" if sum(ran) else "torch"
@@ -324,7 +343,7 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
                     main_launches = ran
             got = cycles_ms({"cuda": (None, make("cuda")), "torch": (None, make("torch")),
                              "shipped": ("shipped", make(None)), "fresh": ("fresh", make(None))},
-                            GUARD_CYCLES if n <= 1 << 22 else 5)
+                            GUARD_CYCLES if n <= 1 << 22 else GUARD_CYCLES_TO_2_24 if n <= 1 << 24 else 5)
             c_ms, t_ms = got["cuda"], got["torch"]
             for model in ("shipped", "fresh"):
                 r_ms = got[model]
@@ -336,11 +355,6 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
                 print(f"router guard {form} n={n} model={model}: route {routes[model]}, routed {r_ms:.4f} ms, "
                       f"backend cuda {c_ms:.4f} ms, backend torch {t_ms:.4f} ms, "
                       f"{'ok' if ok else 'OVER'} (limit {limit:.4f}) {tag}")
-            u_ms = c_ms if routes["unscaled"] == "cuda" else t_ms
-            if not router.within_guard(u_ms, c_ms, t_ms):
-                unscaled_over.append(f"{form} n={n}")
-            print(f"router unscaled {form} n={n}: the shipped table unscaled routes {routes['unscaled']}, measured "
-                  f"{u_ms:.4f} ms, {'ok' if router.within_guard(u_ms, c_ms, t_ms) else 'OVER'} {tag}")
             if form == "key/value":
                 kv_times[n] = (make, c_ms, t_ms, got["shipped"])
         _, c_ms, _, r_ms = kv_times[MAIN_N]
@@ -355,8 +369,6 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
             if not router.within_guard(r_ms, c_ms, t_ms):
                 flagged.append(n)
         print(f"router: the inverted model is flagged at key/value n in {flagged}")
-        print(f"router: without the host probe's scaling the shipped table would be over the limit at "
-              f"{unscaled_over or 'no point'} {tag}")
         if MAIN_N not in flagged:
             failures.append(f"the inverted model was not flagged at 2^28 pairs (flagged: {flagged})")
 
@@ -383,6 +395,211 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
         raise AssertionError("router guard: " + "; ".join(failures))
     print(f"router guard: every point within 10% + 0.010 ms of the faster backend, shipped table and fresh "
           f"calibration ({time.perf_counter() - t0:.1f} s)")
+
+
+def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
+    """Phase 11: the distributed layer (glu_tpu_torch.parallel).
+
+    (a) A 1-rank NCCL group (init_process_group over a file:// store, on the
+    card; destroyed at the end), the layer's main path with the launch
+    counts set to 0 before it and read after it: distributed_radix_sort of
+    2**28 u32 pairs (1 histogram + 4 passes), distributed_radix_sort_f32,
+    _i32 and _u64 at 2**24, the sort of DIST_SMALL_N pairs (K3 alone), and
+    distributed_reduce, distributed_exclusive_scan and
+    distributed_inclusive_scan of 2**28 u32 SUM (K5 once, K4 twice); then
+    each held bit for bit against its single-card call, counts and
+    overflow checked, and a CPU tensor on the NCCL group must raise.
+    (b) Every rank's stages at D = 4 and 8 of a 2**28-pair global array, in
+    this process: local samples, splitters from their concatenation,
+    _bucket_of, _partition_by_bucket on backend "cuda" and "torch" (bit for
+    bit), the exchange by slicing along ragged_exchange_plan, and the local
+    sorts, whose concatenation must be radix_sort(global, backend="torch"),
+    stability included. Everything but the NCCL transfer.
+    (c) Timings (CUDA events, medians): (a)'s sort against radix_sort in
+    turns, and rank 0's _bucket_of, partition and local sort at D = 4, each
+    beside its bytes over 3.35 TB/s.
+    Returns the kernels' launches in (a)'s main path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import glu_tpu_torch as glu
+    from glu_tpu_torch import GluError, ReduceOperator as Op
+    from glu_tpu_torch import parallel
+    from glu_tpu_torch.ops import _cuda_reduce as cr
+    from glu_tpu_torch.ops import _cuda_scan as csc
+    from glu_tpu_torch.ops import _cuda_sort as cs
+    from glu_tpu_torch.parallel import dist_sort as ds
+
+    t0 = time.perf_counter()
+    u32 = lambda t: t.view(torch.uint32)  # noqa: E731
+
+    def rand_words(n: int) -> torch.Tensor:
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+
+    def iota(n: int) -> torch.Tensor:
+        return u32(torch.arange(n, dtype=torch.int32, device=dev))
+
+    def launch_counts() -> dict:
+        torch.cuda.synchronize()
+        return {**cs.launch_counts(), **csc.launch_counts(), **cr.launch_counts()}
+
+    def same(label: str, got, want) -> None:
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape or g.device != w.device:
+                raise AssertionError(f"{label} output {i}: {g.dtype} {tuple(g.shape)} on {g.device}, "
+                                     f"want {w.dtype} {tuple(w.shape)} on {w.device}")
+            if not torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)):
+                raise AssertionError(f"{label} output {i}: differs from its reference")
+
+    # -- (a) a 1-rank NCCL group ----------------------------------------------
+    n24 = DIST_VARIANT_N
+    specials = (0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000)
+    f32 = torch.randn(n24, device=dev, generator=gen)
+    f32.view(torch.int32)[torch.randint(0, n24, (len(specials) * 1000,), device=dev, generator=gen)] = \
+        torch.tensor([p - (p >> 31 << 32) for p in specials], dtype=torch.int32, device=dev).repeat(1000)
+    distinct = torch.randint(-(2**63), 2**63 - 1, (n24 // 4,), dtype=torch.int64, device=dev, generator=gen)
+    u64 = distinct[torch.randint(0, n24 // 4, (n24,), device=dev, generator=gen)].view(torch.uint64)
+    calls = {  # label: (distributed call, single-card call, launches histogram/onesweep/K3/K4/K5)
+        "distributed_radix_sort 2^28 u32 pairs": (
+            lambda a: parallel.distributed_radix_sort(*a, backend="cuda"),
+            lambda a: glu.radix_sort(*a, backend="cuda"), (u32(rand_words(MAIN_N)), iota(MAIN_N)), (1, 4, 0, 0, 0)),
+        "distributed_radix_sort_f32 2^24 with specials": (
+            lambda a: parallel.distributed_radix_sort_f32(*a, backend="cuda"),
+            lambda a: glu.radix_sort_f32(*a, backend="cuda"), (f32, iota(n24)), (1, 4, 0, 0, 0)),
+        "distributed_radix_sort_i32 2^24": (
+            lambda a: parallel.distributed_radix_sort_i32(*a, backend="cuda"),
+            lambda a: glu.radix_sort_i32(*a, backend="cuda"), (rand_words(n24), iota(n24)), (1, 4, 0, 0, 0)),
+        "distributed_radix_sort_u64 2^24 with duplicates": (
+            lambda a: parallel.distributed_radix_sort_u64(*a, backend="cuda"),
+            lambda a: glu.radix_sort_u64(*a, backend="cuda"), (u64, iota(n24)), (2, 8, 0, 0, 0)),
+        f"distributed_radix_sort {DIST_SMALL_N} u32 pairs": (
+            lambda a: parallel.distributed_radix_sort(*a, backend="cuda"),
+            lambda a: glu.radix_sort(*a, backend="cuda"), (u32(rand_words(DIST_SMALL_N)), iota(DIST_SMALL_N)),
+            (0, 0, 1, 0, 0)),
+        "distributed_reduce 2^28 u32 SUM": (
+            lambda a: (parallel.distributed_reduce(*a, backend="cuda"),),
+            lambda a: (glu.reduce(*a, backend="cuda"),), (u32(rand_words(MAIN_N)),), (0, 0, 0, 0, 1)),
+    }
+    scan_in = calls["distributed_reduce 2^28 u32 SUM"][2]
+    calls["distributed_exclusive_scan 2^28 u32 SUM"] = (
+        lambda a: (parallel.distributed_exclusive_scan(*a, backend="cuda"),),
+        lambda a: (glu.exclusive_scan(*a, backend="cuda"),), scan_in, (0, 0, 0, 1, 0))
+    calls["distributed_inclusive_scan 2^28 u32 SUM"] = (
+        lambda a: (parallel.distributed_inclusive_scan(*a, backend="cuda"),),
+        lambda a: (glu.inclusive_scan(*a, backend="cuda"),), scan_in, (0, 0, 0, 1, 0))
+    kernel_order = ("digit_histograms", "onesweep_pass", "sort_single_tile", "exclusive_scan", "reduce")
+    with tempfile.TemporaryDirectory(prefix="glu_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            print(f"distributed (a): 1-rank group, backend {dist.get_backend()}")
+            outs, per_call = {}, {}
+            torch.cuda.synchronize()
+            cs.reset_launch_counts()
+            csc.reset_launch_counts()
+            cr.reset_launch_counts()
+            for label, (dist_call, _, args, _) in calls.items():  # the main path: these launches count
+                before = launch_counts()
+                outs[label] = dist_call(args)
+                after = launch_counts()
+                per_call[label] = tuple(after[k] - before[k] for k in kernel_order)
+            launched = launch_counts()
+            for label, (_, single_call, args, want_launches) in calls.items():
+                got = outs.pop(label)
+                if per_call[label] != want_launches:
+                    raise AssertionError(f"{label}: launched histogram/onesweep/K3/K4/K5 {per_call[label]}, "
+                                         f"want {want_launches}")
+                if len(got) == 4:  # a sort: keys, values, counts, overflow
+                    n = args[0].shape[0]
+                    if got[2].tolist() != [n] or got[3].tolist() != [0] or got[2].dtype != torch.int32:
+                        raise AssertionError(f"{label}: counts {got[2].tolist()}, overflow {got[3].tolist()}")
+                    got = got[:2]
+                same(label, got, single_call(args))
+                print(f"distributed (a) {label}: bit-identical to the single-card call, launches "
+                      f"histogram/onesweep/K3/K4/K5 {per_call[label]}")
+            for label, fn in (("distributed_radix_sort", lambda c: parallel.distributed_radix_sort(c, c)),
+                              ("distributed_reduce", lambda c: parallel.distributed_reduce(c)),
+                              ("distributed_exclusive_scan", lambda c: parallel.distributed_exclusive_scan(c))):
+                try:
+                    fn(u32(torch.arange(1000, dtype=torch.int32)))
+                except GluError:
+                    continue
+                raise AssertionError(f"{label} took a CPU tensor on the NCCL group")
+            print("distributed (a): a CPU tensor on the NCCL group raises GluError in each function")
+            sort_args = calls["distributed_radix_sort 2^28 u32 pairs"][2]
+            d1_ms, single_ms = turns(lambda: parallel.distributed_radix_sort(*sort_args, backend="cuda"),
+                                     lambda: glu.radix_sort(*sort_args, backend="cuda"))
+        finally:
+            dist.destroy_process_group()
+    del calls, outs, scan_in, sort_args, f32, u64, distinct
+    missing = [k for k in kernel_order if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"the distributed path never launched {missing}: {launched}")
+    print(f"distributed (a): launch counts over its main path {launched}")
+    print(f"time distributed_radix_sort 2^28 pairs, 1 rank: {d1_ms:.3f} ms; radix_sort {single_ms:.3f} ms "
+          f"({100 * (d1_ms / single_ms - 1):+.2f}%) {tag}")
+
+    # -- (b) every rank's stages at D = 4 and 8, in one process ----------------
+    keys, values = u32(rand_words(MAIN_N)), iota(MAIN_N)
+    want_k, want_v = glu.radix_sort(keys, values, backend="torch")
+    timings = {}
+    for world in DIST_WORLD_SIZES:
+        n = MAIN_N // world
+        shards = [(keys[r * n:(r + 1) * n], values[r * n:(r + 1) * n]) for r in range(world)]
+        local = [ds._local_samples(k, r, DIST_SAMPLES) for r, (k, _) in enumerate(shards)]
+        splitters = ds._sample_splitters(torch.cat([s for s, _ in local]), torch.cat([i for _, i in local]), world)
+        parts, part_launches = [], []
+        for r, (k, v) in enumerate(shards):
+            bucket = ds._bucket_of(k, r, *splitters)
+            before = launch_counts()
+            part = ds._partition_by_bucket(bucket, [k, v], world, "cuda")
+            after = launch_counts()
+            part_launches.append(tuple(after[x] - before[x] for x in kernel_order[:3]))
+            ref = ds._partition_by_bucket(bucket, [k, v], world, "torch")
+            same(f"_partition_by_bucket D={world} rank {r}", [*part[0], *part[1:]], [*ref[0], *ref[1:]])
+            del ref
+            parts.append(part)
+            if world == 4 and r == 0:
+                timings["_bucket_of"] = (median_ms(lambda: ds._bucket_of(k, 0, *splitters)), 8 * n)
+                timings["_partition_by_bucket"] = (
+                    median_ms(lambda: ds._partition_by_bucket(bucket, [k, v], world, "cuda")), 24 * n)
+            del bucket
+        counts = torch.stack([p[1] for p in parts]).cpu()  # (source, destination)
+        offsets = torch.stack([p[2] for p in parts]).cpu()
+        starts, sizes, total = ds.ragged_exchange_plan(counts, int(counts.sum()))
+        out_k, out_v = [], []
+        for d in range(world):
+            recv = [torch.empty(int(total[d]), dtype=torch.uint32, device=dev) for _ in range(2)]
+            for s, ((pk, pv), _, _) in enumerate(parts):
+                src = slice(int(offsets[s, d]), int(offsets[s, d]) + int(sizes[s, d]))
+                dst = slice(int(starts[s, d]), int(starts[s, d]) + int(sizes[s, d]))
+                recv[0][dst].view(torch.int32).copy_(pk[src].view(torch.int32))
+                recv[1][dst].view(torch.int32).copy_(pv[src].view(torch.int32))
+            before = launch_counts()
+            sk, sv = glu.radix_sort(*recv, backend="cuda")
+            after = launch_counts()
+            if tuple(after[x] - before[x] for x in kernel_order[:3]) != (1, 4, 0):
+                raise AssertionError(f"local sort D={world} rank {d}: launches {after}, {before}")
+            if world == 4 and d == 0:
+                timings["local radix_sort"] = (median_ms(lambda: glu.radix_sort(*recv, backend="cuda")),
+                                               16 * int(total[d]))
+            out_k.append(sk)
+            out_v.append(sv)
+        same(f"D={world} ranks' sorts joined", [torch.cat(out_k), torch.cat(out_v)], [want_k, want_v])
+        print(f"distributed (b) D={world}: {world} ranks' stages joined are bit-identical to "
+              f"radix_sort(backend='torch') of 2^28 pairs; received per rank {total.tolist()} "
+              f"(largest {int(total.max()) / n:.4f} x n_local); partitions launched histogram/onesweep/K3 "
+              f"{sorted(set(part_launches))}")
+        del shards, local, parts, out_k, out_v, recv, sk, sv
+    del keys, values, want_k, want_v
+
+    # -- (c) timings ---------------------------------------------------------------
+    for label, (ms, nbytes) in timings.items():
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"time {label}, rank 0 of D=4 (2^26 pairs a rank): {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes} bytes over 3.35 TB/s) {tag}")
+    print(f"distributed layer: phase 11 passed ({time.perf_counter() - t0:.1f} s)")
+    return launched
 
 
 def main() -> int:
@@ -468,6 +685,25 @@ def main() -> int:
     check_same("digit_histograms", "n=2^28 4 passes", [cs.digit_histograms(keys, hist_groups)],
                [cs.digit_histograms_ref(keys, hist_groups)])
     del keys
+    # the one-call sort (glu_onesweep_sort: the histogram's last CTA writes
+    # the digit starts, the passes write the outputs and a scratch buffer in
+    # turn) against the two wrappers it runs, pass by pass; 2^28 pairs take
+    # one status region zeroed a pass, the small sizes one region a pass
+    fused_cases = [(n_small, kd, pos, ns) for kd in ("uniform", "mod3")
+                   for pos in (tuple(range(32)), tuple(range(8)), scattered + (31,)) for ns in (0, 1, 7)]
+    fused_cases.append((MAIN_N, "uniform", tuple(range(32)), 1))  # the main path
+    for n, kd, pos, ns in fused_cases:
+        keys = words(n, kd)
+        pays = ([torch.arange(n, dtype=torch.int32, device=dev)] + [words(n, "uniform") for _ in range(ns - 1)])[:ns]
+        got_k, got_p = cs.onesweep_sort(keys, pays, pos)
+        groups = cs._pass_groups(pos)
+        hist = cs.digit_histograms(keys, groups)
+        want_k, want_p = keys, pays
+        for g, base in zip(groups, torch.cumsum(hist, 1, dtype=torch.int32) - hist):
+            want_k, want_p = cs.onesweep_pass(want_k, want_p, g, base[: 1 << len(g)])
+        check_same("onesweep_pass", f"one call n={n} keys={kd} bits={pos} payloads={ns}", [got_k, *got_p],
+                   [want_k, *want_p])
+        del keys, pays, got_k, got_p, want_k, want_p, hist
     k3_cases = 0
     for n in (1, 2, 1000, 10000, cs.SINGLE_TILE_MAX):
         for kd in ("uniform", "constant", "mod3"):
@@ -483,7 +719,8 @@ def main() -> int:
                     k3_cases += 1
     torch.cuda.synchronize()
     print(f"kernels vs plain versions: bit-identical, max_abs_err {max_err} "
-          f"({len(pass_cases)} histogram/onesweep cases, {k3_cases} K3 cases, {time.perf_counter() - t0:.1f} s)")
+          f"({len(pass_cases)} histogram/onesweep cases, {len(fused_cases)} one-call sorts against the per-pass "
+          f"wrappers, {k3_cases} K3 cases, {time.perf_counter() - t0:.1f} s)")
 
     # -- 4. the main path, bit for bit against torch.sort -----------------------
     def as_u32(w: torch.Tensor) -> torch.Tensor:
@@ -926,7 +1163,8 @@ def main() -> int:
         del sk, sv
 
     def onesweep_path(k, v):
-        """The engine's multi-tile path (1 histogram + 4 passes) at any n."""
+        """The engine's multi-tile path (1 histogram + 4 passes) at any n,
+        through the per-pass wrappers (radix_sort runs it as one call)."""
         hist = cs.digit_histograms(k, hist_groups)
         for g, base in zip(hist_groups, torch.cumsum(hist, 1, dtype=torch.int32) - hist):
             k, (v,) = cs.onesweep_pass(k, [v], g, base)
@@ -936,12 +1174,17 @@ def main() -> int:
         ck, cv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
         k3_text = (f"{median_ms(lambda: cs.sort_single_tile(ck, [cv], full), reps=20):.4f}"
                    if n <= cs.SINGLE_TILE_MAX else "- (above its limit)")
-        print(f"crossover n={n} (32-bit pairs, ms): sort_single_tile {k3_text}, histogram + onesweep "
+        print(f"crossover n={n} (32-bit pairs, ms): sort_single_tile {k3_text}, histogram + onesweep per pass "
               f"{median_ms(lambda: onesweep_path(ck, cv), reps=20):.4f}, torch.sort(stable)+gather "
               f"{median_ms(lambda: sort_and_gather(ck, cv), reps=20):.4f}, radix_sort backend cuda "
               f"{median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv), backend='cuda'), reps=20):.4f}"
               f", routed {median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv)), reps=20):.4f} {tag}")
         del ck, cv
+    ck, cv = words(MAIN_N, "uniform"), torch.arange(MAIN_N, dtype=torch.int32, device=dev)
+    one_ms, per_ms = turns(lambda: cs.onesweep_sort(ck, [cv], full), lambda: onesweep_path(ck, cv))
+    print(f"time the 2^28-pair multi-tile sort: one library call (onesweep_sort) {one_ms:.4f} ms, the same "
+          f"launches through the per-pass wrappers {per_ms:.4f} ms, in turns {tag}")
+    del ck, cv
     pair_bytes = MAIN_N * 2 * 4
     bounds = {  # the function's bytes: the pass's status words are the design's, not counted
         "digit_histograms": _bound(MAIN_N * 4 + len(hist_groups) * cs.BINS * 4, len(hist_groups) * MAIN_N),
@@ -1004,6 +1247,10 @@ def main() -> int:
 
     # -- 10. the router guard ----------------------------------------------------
     _router_guard(torch, dev, gen, tag)
+
+    # -- 11. the distributed layer -----------------------------------------------
+    for name, count in _distributed_layer(torch, dev, gen, tag, median_ms, turns).items():
+        launches[name] += count
 
     kernels = {  # name: (source, TPU kernel it replaces)
         "digit_histograms": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:256"),

@@ -10,7 +10,9 @@ segmented); the reduce (`reduce`, `segmented_reduce`, `Reduce`,
 kernel K5 in csrc/reduce.cu) and the scan (`exclusive_scan`,
 `inclusive_scan`, `BlellochScan`, kernel K4 in csrc/scan.cu), and the
 router that picks the kernels or torch's call for a sort or reduce given
-`backend=None`, by a cost model measured per card (ops/router.py). A function
+`backend=None`, by a cost model measured per card (ops/router.py); and the
+subpackage `glu_tpu_torch.parallel` (not imported here): the distributed
+sort, reduce and scans over a torch.distributed process group. A function
 given a tensor works on the tensor's device; a function that makes a tensor
 (`from_numpy`, `DeviceBuffer`, `RadixSort.prepare_internal_buffers`) puts
 it on the card unless given `device=`. The package imports torch and never

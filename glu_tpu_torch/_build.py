@@ -130,13 +130,17 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_digit_histograms.argtypes = [ptr, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, count, ..., stream)
     lib.glu_onesweep_pass.argtypes = [ptr, ptr, c_int, c_int, ptr, c_int, ptr, ptr, ptr]
+    # (n, passes) -> int32 words of glu_onesweep_sort's work buffer
+    lib.glu_onesweep_sort_work_words.argtypes = [c_int, c_int]
+    # (in, out and tmp pointers, stream count, n, bit positions, bits per pass, passes, work, stream)
+    lib.glu_onesweep_sort.argtypes = [ptr, ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, stream)
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
-    for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_sort_single_tile", "glu_reduce",
-                 "glu_scan_pass"):
+    for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
+                 "glu_sort_single_tile", "glu_reduce", "glu_scan_pass"):
         getattr(lib, name).restype = c_int
     return lib

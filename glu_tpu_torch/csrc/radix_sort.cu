@@ -2,7 +2,8 @@
 // keys carrying u32 payload streams (glu_tpu_torch/ops/_cuda_sort.py).
 //
 // A sort runs digit_histograms once, which counts the digit of every pass in
-// one read of the keys, then one onesweep_pass per digit of 1-8 key bits:
+// one read of the keys (its last CTA turning the counts into each digit's
+// start), then one onesweep_pass per digit of 1-8 key bits:
 // each tile is ranked, finds its place through a decoupled look-back over
 // the tiles before it, and writes every stream to its final place, so each
 // word is read once and written once per pass (Adinets & Merrill,
@@ -15,6 +16,8 @@
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc takes seconds):
 // every entry returns a cudaError_t, cudaGetLastError() after its launch.
+// glu_onesweep_sort runs a whole multi-tile sort (the histogram and every
+// pass) in one call, so that the host pays one call a sort, not one a pass.
 
 #include <algorithm>
 #include <atomic>
@@ -133,10 +136,16 @@ __device__ int block_exclusive_sum(int value, int* warp_sums, int* total) {
 // a grid-stride loop; each CTA counts in shared memory with shared atomics
 // and adds its counts to hist with one global atomic per non-zero bin.
 // Integer adds are exact in any order, so the result is deterministic.
+// Where bases is given, the last CTA to finish (counted in *ctas_done, zero
+// at launch) writes bases[p][d], the exclusive sum of hist[p] up to d: where
+// digit d starts in pass p's output (the cumsum that the TPU engine ran in
+// XLA between its kernels).
 __global__ void __launch_bounds__(kHistThreads)
     digit_histograms_kernel(const uint32_t* __restrict__ keys, int n, PassDigits plan,
-                            int* hist) {
+                            int* hist, int* bases, unsigned int* ctas_done) {
   __shared__ int counts[kMaxPasses * kMaxBins];
+  __shared__ int warp_sums[kHistThreads / 32 + 1];
+  __shared__ bool last;
   const int t = threadIdx.x;
   for (int i = t; i < kMaxPasses * kMaxBins; i += kHistThreads) counts[i] = 0;
   __syncthreads();
@@ -164,6 +173,19 @@ __global__ void __launch_bounds__(kHistThreads)
   __syncthreads();
   for (int k = t; k < plan.count * kMaxBins; k += kHistThreads) {
     if (counts[k]) atomicAdd(&hist[k], counts[k]);
+  }
+  if (bases == nullptr) return;
+  __threadfence();  // this CTA's adds, before its count of finished CTAs
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ctas_done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int p = 0; p < plan.count; ++p) {
+    const int c = t < kMaxBins ? __ldcg(hist + p * kMaxBins + t) : 0;  // from L2, where the adds landed
+    int total;
+    const int start = block_exclusive_sum<kHistThreads>(c, warp_sums, &total);
+    if (t < kMaxBins) bases[p * kMaxBins + t] = start;
   }
 }
 
@@ -554,22 +576,68 @@ bool fill_plan(PassDigits* plan, const int* bits, const int* nbits, int npasses)
   return true;
 }
 
-// Lets K3 take kSingleTileSmem of dynamic shared memory: once per device
-// and process, not on every launch.
-cudaError_t allow_single_tile_smem() {
-  static std::atomic<unsigned long long> done{0};  // one bit per device
+// Lets `kernel` take `bytes` of dynamic shared memory: once per device and
+// process (a bit of `done` per device), not on every launch.
+cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>* done) {
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(sort_single_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSingleTileSmem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  if (done->load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
 
+cudaError_t allow_single_tile_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return allow_smem(reinterpret_cast<const void*>(sort_single_tile_kernel), kSingleTileSmem, &done);
+}
+
+// The most any onesweep launch takes (kMaxStreams streams); a launch with
+// fewer streams asks for less.
+cudaError_t allow_onesweep_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return allow_smem(reinterpret_cast<const void*>(onesweep_pass_kernel), onesweep_smem(kMaxStreams), &done);
+}
+
 int num_tiles(int n) { return static_cast<int>((static_cast<long long>(n) + kTile - 1) / kTile); }
+
+// One digit_histograms launch: a grid of up to two CTAs per SM, each
+// taking whole 16-byte vectors of 4 keys a thread.
+cudaError_t launch_histograms(const void* keys, int n, const PassDigits& plan, int* hist, int* bases,
+                              unsigned int* ctas_done, cudaStream_t stream) {
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long per_cta = static_cast<long long>(kHistThreads) * 4;
+  const int ctas = static_cast<int>(
+      std::max(1LL, std::min(static_cast<long long>(sms) * (2048 / kHistThreads), (n + per_cta - 1) / per_cta)));
+  digit_histograms_kernel<<<ctas, kHistThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), n, plan, hist, bases, ctas_done);
+  return cudaGetLastError();
+}
+
+// glu_onesweep_sort's work buffer, in int32 words: hist and bases
+// ([kMaxPasses][kMaxBins] each), the histogram's count of finished CTAs,
+// then, from a 256-byte boundary, the status words of the passes: a region
+// for every pass (num_tiles(n) * kMaxBins + 1 64-bit words, each region
+// from a 256-byte boundary, as a fresh allocation's are: a warp's look-back
+// reads 32 adjacent words), all zeroed at once, where they take at most
+// kSeparateStatusBytes, else one region zeroed before each pass. One
+// zeroing instead of one a pass spares the host a call a pass where the
+// sort is small and the host's calls are most of its time; a region a pass
+// would hold 358 MB at 2^28 pairs.
+constexpr long long kWorkHead = (2LL * kMaxPasses * kMaxBins + 1 + 63) / 64 * 64;
+constexpr long long kSeparateStatusBytes = 64LL << 20;
+
+// 64-bit words from one status region to the next
+long long status_words(int n) { return (static_cast<long long>(num_tiles(n)) * kMaxBins + 1 + 31) / 32 * 32; }
+
+int status_regions(int n, int npasses) {
+  return npasses * status_words(n) * 8 <= kSeparateStatusBytes ? npasses : 1;
+}
 
 }  // namespace
 
@@ -587,16 +655,7 @@ int glu_digit_histograms(const void* keys, int n, const int* bits, const int* nb
   PassDigits plan;
   if (keys == nullptr || n < 1 || hist == nullptr || !fill_plan(&plan, bits, nbits, npasses))
     return cudaErrorInvalidValue;
-  int device, sms;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const long long per_cta = static_cast<long long>(kHistThreads) * 4;
-  const int ctas = static_cast<int>(
-      std::max(1LL, std::min(static_cast<long long>(sms) * (2048 / kHistThreads), (n + per_cta - 1) / per_cta)));
-  digit_histograms_kernel<<<ctas, kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), n, plan, hist);
-  return cudaGetLastError();
+  return launch_histograms(keys, n, plan, hist, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // status: num_tiles(n) * kMaxBins + 1 zeroed 64-bit words.
@@ -608,13 +667,63 @@ int glu_onesweep_pass(const void* const* in, void* const* out, int nstreams, int
   if (n < 1 || digit_base == nullptr || status == nullptr || !fill_streams(&s, in, out, nstreams) ||
       !fill_digit(&digit, bits, nbits))
     return cudaErrorInvalidValue;
-  const int smem = onesweep_smem(nstreams);
-  cudaError_t err = cudaFuncSetAttribute(onesweep_pass_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_onesweep_smem();
   if (err != cudaSuccess) return err;
-  onesweep_pass_kernel<<<num_tiles(n), kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  onesweep_pass_kernel<<<num_tiles(n), kTileThreads, onesweep_smem(nstreams), static_cast<cudaStream_t>(stream)>>>(
       s, n, digit, digit_base, static_cast<unsigned long long*>(status));
   return cudaGetLastError();
+}
+
+// The int32 words of the work buffer that glu_onesweep_sort takes for n
+// elements in npasses passes (under 2^28 for any n below 2^31); the buffer
+// starts at a 256-byte boundary.
+int glu_onesweep_sort_work_words(int n, int npasses) {
+  if (n < 1 || npasses < 1 || npasses > kMaxPasses) return -1;
+  return static_cast<int>(kWorkHead + 2 * status_regions(n, npasses) * status_words(n));
+}
+
+// A whole multi-tile sort in one call: digit_histograms, whose last CTA
+// writes every pass's digit starts, then one onesweep_pass per pass of plan
+// (bits, nbits, npasses as fill_plan takes them). Pass p reads `in` (p = 0)
+// or the pass before's output, and writes `out` when npasses - 1 - p is
+// even, else `tmp`, so that the last pass writes `out`; tmp (nstreams
+// buffers of n words) is read only when npasses > 1. work:
+// glu_onesweep_sort_work_words(n, npasses) int32 words from a 256-byte
+// boundary. The inputs are not written.
+int glu_onesweep_sort(const void* const* in, void* const* out, void* const* tmp, int nstreams, int n,
+                      const int* bits, const int* nbits, int npasses, void* work, void* stream) {
+  PassDigits plan;
+  Streams check;
+  if (n < 1 || work == nullptr || !fill_plan(&plan, bits, nbits, npasses) ||
+      !fill_streams(&check, in, out, nstreams) || (npasses > 1 && !fill_streams(&check, in, tmp, nstreams)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* hist = static_cast<int*>(work);
+  int* bases = hist + kMaxPasses * kMaxBins;
+  unsigned int* ctas_done = reinterpret_cast<unsigned int*>(bases + kMaxPasses * kMaxBins);
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(hist + kWorkHead);
+  const int regions = status_regions(n, npasses);
+  const size_t region_bytes = static_cast<size_t>(status_words(n)) * sizeof(unsigned long long);
+  // the head, and every region where there is one a pass
+  cudaError_t err = cudaMemsetAsync(work, 0, kWorkHead * sizeof(int) + (regions > 1 ? regions * region_bytes : 0), st);
+  if (err == cudaSuccess) err = launch_histograms(in[0], n, plan, hist, bases, ctas_done, st);
+  if (err == cudaSuccess) err = allow_onesweep_smem();
+  const void* const* src = in;
+  for (int p = 0; p < npasses && err == cudaSuccess; ++p) {
+    void* const* dst = (npasses - 1 - p) % 2 == 0 ? out : tmp;
+    unsigned long long* pass_status = status + (regions > 1 ? p * status_words(n) : 0);
+    if (regions == 1) {
+      err = cudaMemsetAsync(pass_status, 0, region_bytes, st);
+      if (err != cudaSuccess) break;
+    }
+    Streams pass;
+    fill_streams(&pass, src, dst, nstreams);
+    onesweep_pass_kernel<<<num_tiles(n), kTileThreads, onesweep_smem(nstreams), st>>>(
+        pass, n, plan.pass[p], bases + p * kMaxBins, pass_status);
+    err = cudaGetLastError();
+    src = const_cast<const void* const*>(dst);
+  }
+  return err;
 }
 
 // bits, nbits, npasses: the passes, as fill_plan takes them.

@@ -11,8 +11,8 @@ written anew from what it computes (csrc/radix_sort.cu):
 
   ONCE per sort:
     `digit_histograms` -- one read of the keys counts the digit of every
-        pass; an exclusive cumsum of each pass's counts (plain torch) gives
-        each digit's global start.
+        pass; an exclusive cumsum of each pass's counts gives each digit's
+        global start (in the sort, the kernel's last CTA computes it).
   PASS over bits g (LSB-first, up to 8 bits, 256 bins):
     `onesweep_pass` -- one CTA per tile of TILE elements ranks the tile
         stably by the digit of bits g, finds how many equal digits the
@@ -22,6 +22,9 @@ written anew from what it computes (csrc/radix_sort.cu):
   An input of at most SINGLE_TILE_MAX elements instead takes
     K3 `sort_single_tile` -- one CTA runs every pass (the same passes of up
         to 8 bits) in shared memory.
+
+`onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
+in one call to the library.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
@@ -110,10 +113,19 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+_lib = None  # the kernel library, its geometry checked, once loaded
+
+
+def _sort_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS,
+                       sort_bins=BINS)
+    return _lib
+
+
 def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS,
-                  sort_bins=BINS)
-    launch(lib, fn_name, device, *args)
+    launch(_sort_lib(), fn_name, device, *args)
 
 
 def _ints(values) -> ctypes.Array:
@@ -321,8 +333,9 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     bit_positions (optional, LSB-first) restricts the sort to those key
     bits; None means bits 0..4*num_steps-1 (the reference contract).
 
-    Up to SINGLE_TILE_MAX elements take K3 alone; larger inputs take one
-    digit_histograms launch and one onesweep_pass per group of 8 bits."""
+    Up to SINGLE_TILE_MAX elements take K3 alone; larger inputs take
+    onesweep_sort: one digit_histograms launch and one onesweep_pass per
+    group of 8 bits."""
     payloads = list(payloads)
     if bit_positions is None:
         positions = tuple(range(num_steps * FIELD_BITS))
@@ -334,14 +347,50 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     if n <= SINGLE_TILE_MAX:
         vlog("radix_sort n=%d: single tile, streams=%d bits=%d", n, 1 + len(payloads), len(positions))
         return sort_single_tile(keys, payloads, positions)
-    groups = _pass_groups(positions)
-    vlog(
-        "radix_sort n=%d: tiles=%d streams=%d passes=%d",
-        n, cdiv(n, TILE), 1 + len(payloads), len(groups),
-    )
-    hist = digit_histograms(keys, groups)
-    bases = torch.cumsum(hist, 1, dtype=torch.int32) - hist
-    for g, base in zip(groups, bases):
-        # rebinding at once frees each pass's input as soon as it is consumed
-        keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
-    return keys, payloads
+    vlog("radix_sort n=%d: tiles=%d streams=%d bits=%d", n, cdiv(n, TILE), 1 + len(payloads), len(positions))
+    return onesweep_sort(keys, payloads, positions)
+
+
+@functools.lru_cache(maxsize=64)
+def _onesweep_plan(positions: tuple) -> tuple:
+    """The checked passes of a multi-tile sort by `positions` and their C
+    form, made once per tuple of positions."""
+    groups = [_check_positions(g, MAX_FIELD_BITS) for g in _pass_groups(positions)]
+    check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
+    return groups, _plan_args(groups)
+
+
+def onesweep_sort(keys: torch.Tensor, payloads, positions):
+    """The multi-tile sort: one digit_histograms launch for every pass, then
+    one onesweep_pass per group of 8 key bits (LSB-first). On the card the
+    whole sort is one library call (glu_onesweep_sort), so that the host
+    pays one call a sort, not one a pass: the histogram's last CTA writes
+    each pass's digit starts (no cumsum), each pass's status words are
+    zeroed in the call, and the passes write the outputs and one scratch
+    buffer in turn. Returns (keys, list of payloads), new tensors."""
+    global digit_histograms_launches, onesweep_pass_launches
+    payloads = list(payloads)
+    if not on_cuda(keys):
+        groups = _pass_groups(tuple(positions))
+        hist = digit_histograms(keys, groups)
+        bases = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+        for g, base in zip(groups, bases):
+            # rebinding at once frees each pass's input as soon as it is consumed
+            keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
+        return keys, payloads
+    streams = _check_streams(keys, payloads)
+    groups, plan = _onesweep_plan(tuple(positions))
+    n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
+    outs = [torch.empty_like(s) for s in streams]
+    # one allocation: the scratch streams (more than one pass), then the
+    # work words from a 256-byte boundary (an allocation's own start)
+    tmp_words = -(-len(streams) * n // 64) * 64 if npasses > 1 else 0
+    buf = torch.empty(tmp_words + lib.glu_onesweep_sort_work_words(n, npasses), dtype=torch.int32,
+                      device=keys.device)
+    base = buf.data_ptr()
+    tmp = (ctypes.c_void_p * len(streams))(*[base + 4 * n * i for i in range(len(streams))]) if npasses > 1 else None
+    launch(lib, "glu_onesweep_sort", keys.device, _pointers(streams), _pointers(outs), tmp, len(streams), n, *plan,
+           base + 4 * tmp_words)
+    digit_histograms_launches += 1
+    onesweep_pass_launches += npasses
+    return outs[0], outs[1:]

@@ -125,18 +125,23 @@ def _sort_two_words(major, minor, major_pos: tuple, minor_pos: tuple, payloads, 
 # ---------------------------------------------------------------------------
 
 
-def _varying_bits(words: torch.Tensor, backend: str) -> tuple:
-    """Positions of the bits of int32-carried words where they disagree:
-    the set bits of OR(keys) ^ AND(keys), fetched to the host, which
-    synchronises it with the device.
+def _key_envelope(words: torch.Tensor, backend: str) -> torch.Tensor:
+    """(OR, AND) of int32-carried words, as two u32 values in an int64
+    tensor on their device (no host sync): the bits where OR ^ AND is set
+    vary. Envelopes of several arrays fold into that of their union by OR
+    and AND (the distributed sort's bits="auto"); an empty array's is the
+    identity (0, 0xFFFFFFFF).
 
     "cuda": one digit_histograms launch over the four bytes (K1's counts,
-    one read of the keys). Bit b of byte j varies iff some byte value that
-    occurs (count > 0) has bit b and some other lacks it. "torch": the OR of
-    every key's difference from the first, folded by halves."""
-    if words.numel() <= 1:
-        return ()
-    if backend == "torch":
+    one read of the keys); bit b of byte j is set in the OR iff some byte
+    value that occurs (count > 0) has it, and clear in the AND iff some
+    byte value that occurs lacks it. "torch": the OR of every key's
+    difference from the first, folded by halves: OR = first | diff, AND =
+    first & ~diff."""
+    dev = words.device
+    if words.numel() == 0:
+        return torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64, device=dev)
+    if backend == "torch" or words.numel() == 1:
         d = words ^ words[0]
         while d.numel() > 1:
             half = d.numel() // 2
@@ -144,16 +149,31 @@ def _varying_bits(words: torch.Tensor, backend: str) -> tuple:
             if d.numel() % 2:
                 top[:1] |= d[-1:]
             d = top
-        mask = int(d)
-    else:
-        from ._cuda_sort import digit_histograms
+        first = words[:1]
+        return torch.cat([first | d, first & ~d]).to(torch.int64) & 0xFFFFFFFF
+    from ._cuda_sort import digit_histograms
 
-        occurs = (digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
-        value = torch.arange(256, device=words.device)
-        has = ((value >> torch.arange(8, device=words.device)[:, None]) & 1).bool()  # (bit, value)
-        varying = (occurs & has).any(2) & (occurs & ~has).any(2)  # (byte, bit): key bit 8 * byte + bit
-        mask = int((varying.reshape(32).to(torch.int64) << torch.arange(32, device=words.device)).sum())
+    occurs = (digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
+    value = torch.arange(256, device=dev)
+    has = ((value >> torch.arange(8, device=dev)[:, None]) & 1).bool()  # (bit, value)
+    some_has, some_lacks = (occurs & has).any(2), (occurs & ~has).any(2)  # (byte, bit): key bit 8 * byte + bit
+    weight = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(32, device=dev)
+    return torch.stack([(some_has.reshape(32) * weight).sum(), (~some_lacks.reshape(32) * weight).sum()])
+
+
+def _envelope_positions(or_word: int, and_word: int) -> tuple:
+    """The varying bit positions, ascending, of an (OR, AND) envelope."""
+    mask = or_word ^ and_word
     return tuple(b for b in range(32) if (mask >> b) & 1)
+
+
+def _varying_bits(words: torch.Tensor, backend: str) -> tuple:
+    """Positions of the bits of int32-carried words where they disagree:
+    the set bits of OR(keys) ^ AND(keys) (_key_envelope), fetched to the
+    host, which synchronises it with the device."""
+    if words.numel() <= 1:
+        return ()
+    return _envelope_positions(*_key_envelope(words, backend).tolist())
 
 
 def varying_key_bits(keys: torch.Tensor) -> tuple:

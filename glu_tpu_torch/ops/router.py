@@ -3,24 +3,27 @@ reduce when the caller asked for none (counterpart of the router in
 glu_tpu/ops/radix_sort.py:44-211, :497-513, :683-700 and of
 glu_tpu/ops/reduce.py::_reduce_backend).
 
-No fixed choice is right on the H100: from 24,577 pairs to about 2^22 the
-engine's host steps (five launches, a cumsum, a fill of status words a
-pass) take longer than one `torch.sort(stable)` and a gather, while below
-and at 2^28 the kernels are faster. So a sort or reduce of a CUDA tensor
-given `backend=None`, with GLU_TPU_TORCH_BACKEND unset
-(ops/backend.py::routable), runs whichever backend the model says is
-faster. The model is a dict of measured rates, one per card: the
-calibration file when it exists and parses (`router_calibration_path()`,
-written by `python -m glu_tpu_torch.ops.router --calibrate`), else the
-shipped table measured on an H100 (`_H100_MODEL`). It is read once per
-device and kept.
+No fixed choice is right on every card and host: the engine's multi-tile
+sort pays a fixed time a call (the host's call, the launches' latency and
+each pass's chain of tiles) that torch.sort's route may undercut at small
+sizes, while the reduce of a few elements is faster through torch's own
+call. So a sort or reduce of a CUDA tensor given `backend=None`, with
+GLU_TPU_TORCH_BACKEND unset (ops/backend.py::routable), runs whichever
+backend the model says is faster; a sort goes to torch only where the model
+has it faster by more than TORCH_MARGIN (`_faster`). On the H100 the
+engine wins every sort size (since the whole multi-tile sort became one
+library call) and torch's call every reduce up to 2^28. The model is a dict
+of measured rates, one per card: the calibration file when it exists and
+parses (`router_calibration_path()`, written by `python -m
+glu_tpu_torch.ops.router --calibrate`), else the shipped table measured on
+an H100 (`_H100_MODEL`). It is read once per device and kept.
 
 The model's form is the engine's (ops/_cuda_sort.py): up to SINGLE_TILE_MAX
 pairs K3 alone, costing a fixed time (the wrapper's host time) plus n x
 passes x a rate; above it one histogram launch and one onesweep pass per 8
-key bits, costing the larger of the host's time (a fixed time plus a time a
-pass: the launches, the histogram's cumsum, a fill of status words a pass)
-and the card's (n x (the histogram's rate + passes x the pass's rate)). The
+key bits, costing the larger of a fixed time plus a time a pass (the
+host's call and the launches' latency) and the card's (n x (the
+histogram's rate + passes x the pass's rate)). The
 per-key rates are given for 0, 1 and 2 payloads and extended linearly past
 2. The torch side is a table of ns per key by log2 n of each form of the
 "torch" backend's core sort (key/value, keys only, two payloads, the int64
@@ -28,11 +31,13 @@ sort of u64 keys, the (segment, key) sort), interpolated geometrically
 between its points and extended past its end by a slope, plus a masking
 pass where the sorted bits are not the whole key. Work that both backends
 do alike (float and signed key transforms, the u64 word split and join,
-segment ids, gathers of payloads past the seventh) is not counted. The host
-times, both backends', are scaled by how much slower this host launches
-than the calibration's did (_host_probe_us, run once per device where its
-model is read: the first routed call of a process pays it, a few ms of host
-time).
+segment ids, gathers of payloads past the seventh) is not counted. Two
+chained engine sorts (u64 keys, segments) cost their sum less the second's
+fixed time, spent on the host while the card runs the first. The model is
+read as it was measured: the host's speed moves from one second to the
+next on the H100's machines, by more than any probe taken once can tell
+(PERF.md), and since the engine's sort is one library call no route on
+the H100 turns on it.
 
 The router chooses before the call, from the model; it never retries a
 failed kernel on torch. The scans have no router, as in the JAX package:
@@ -64,49 +69,47 @@ from . import backend as _backend
 _H100_MODEL = {
     "device": "NVIDIA H100 80GB HBM3",
     "power_limit_w": 700.0,
-    "k3_fixed_us": 65.739,
-    "k3_ns_per_key_pass": [0.72179, 0.69922, 0.65842],
-    "onesweep_fixed_us": 99.253,
-    "onesweep_pass_us": 67.307,
-    "onesweep_hist_ns_per_key": 0.0035949,
-    "onesweep_ns_per_key_pass": [0.0090028, 0.0095865, 0.015034],
+    "k3_fixed_us": 70.389,
+    "k3_ns_per_key_pass": [0.64019, 0.75304, 0.8342],
+    "onesweep_fixed_us": 91.573,
+    "onesweep_pass_us": 14.347,
+    "onesweep_hist_ns_per_key": 0.0049942,
+    "onesweep_ns_per_key_pass": [0.0081999, 0.0095398, 0.014246],
     "torch_ns_per_key": {
         "keys": [
-            [10.0, 107.25], [12.0, 21.758], [14.0, 9.2051], [14.584963, 4.1419], [14.585021, 4.6209],
-            [15.0, 3.2109], [16.0, 2.3179], [17.0, 0.85205], [18.0, 0.45789], [20.0, 0.14819],
-            [22.0, 0.094551], [24.0, 0.085667], [26.0, 0.091047], [28.0, 0.090072],
+            [10.0, 140.87], [12.0, 33.555], [14.0, 8.877], [14.584963, 6.0143], [14.585021, 5.7693],
+            [15.0, 4.3643], [16.0, 2.2803], [17.0, 1.1748], [18.0, 0.5542], [20.0, 0.17392],
+            [22.0, 0.097359], [24.0, 0.085152], [26.0, 0.091333], [28.0, 0.090183],
         ],
         "kv": [
-            [10.0, 124.81], [12.0, 25.539], [14.0, 9.6816], [14.584963, 4.4128], [14.585021, 5.0011],
-            [15.0, 3.3613], [16.0, 2.3311], [17.0, 0.99512], [18.0, 0.47791], [20.0, 0.16461],
-            [22.0, 0.10489], [24.0, 0.11062], [26.0, 0.12443], [28.0, 0.1258],
+            [10.0, 149.34], [12.0, 35.117], [14.0, 10.191], [14.584963, 6.6211], [14.585021, 6.6],
+            [15.0, 4.7002], [16.0, 2.2251], [17.0, 1.1702], [18.0, 0.60461], [20.0, 0.18668],
+            [22.0, 0.11124], [24.0, 0.11022], [26.0, 0.12458], [28.0, 0.12604],
         ],
         "multi2": [
-            [10.0, 130.16], [12.0, 26.398], [14.0, 10.238], [14.584963, 4.9909], [14.585021, 5.2459],
-            [15.0, 3.7236], [16.0, 2.4502], [17.0, 1.0247], [18.0, 0.50452], [20.0, 0.1734],
-            [22.0, 0.12169], [24.0, 0.13575], [26.0, 0.158], [28.0, 0.16152],
+            [10.0, 156.94], [12.0, 36.883], [14.0, 10.35], [14.584963, 6.6159], [14.585021, 7.0674],
+            [15.0, 4.4238], [16.0, 2.144], [17.0, 1.3838], [18.0, 0.66235], [20.0, 0.19849],
+            [22.0, 0.12606], [24.0, 0.13528], [26.0, 0.15871], [28.0, 0.16173],
         ],
         "u64": [
-            [10.0, 213.69], [12.0, 46.078], [14.0, 19.387], [14.584963, 10.039], [14.585021, 9.8121],
-            [15.0, 7.3506], [16.0, 4.1577], [17.0, 1.9885], [18.0, 0.97449], [20.0, 0.3382],
-            [22.0, 0.23166], [24.0, 0.24069], [26.0, 0.26614],
+            [10.0, 296.66], [12.0, 66.445], [14.0, 17.455], [14.584963, 11.724], [14.585021, 12.97],
+            [15.0, 8.7285], [16.0, 5.0356], [17.0, 2.3149], [18.0, 1.2063], [20.0, 0.40475],
+            [22.0, 0.24788], [24.0, 0.23983], [26.0, 0.26591],
         ],
         "segmented": [
-            [10.0, 244.56], [12.0, 50.867], [14.0, 19.85], [14.584963, 10.241], [14.585021, 9.5374],
-            [15.0, 7.1465], [16.0, 4.8711], [17.0, 1.9661], [18.0, 0.96179], [20.0, 0.32571],
-            [22.0, 0.21645], [24.0, 0.18193], [26.0, 0.18074],
+            [10.0, 277.37], [12.0, 62.313], [14.0, 19.811], [14.584963, 12.775], [14.585021, 13.945],
+            [15.0, 10.097], [16.0, 4.834], [17.0, 2.5552], [18.0, 1.2721], [20.0, 0.39587],
+            [22.0, 0.23611], [24.0, 0.18274], [26.0, 0.17993],
         ],
     },
-    "torch_slope": {"keys": 0.0, "kv": 0.000685, "multi2": 0.00176, "u64": 0.012725, "segmented": 0.0},
-    "compact_us": 4.928,
+    "torch_slope": {"keys": 0.0, "kv": 0.00073, "multi2": 0.00151, "u64": 0.01304, "segmented": 0.0},
+    "compact_us": 19.744,
     "compact_ns_per_key": 0.0,
-    "host_probe_us": 6.3189,
     "reduce_torch_max_n": 268435456,
 }
 
 _ENV_CALIBRATION = "GLU_TPU_TORCH_ROUTER_CALIBRATION"
-PROBE_BATCHES = 41
-PROBE_CALLS = 16
+TORCH_MARGIN = 0.20  # a sort goes to torch only where the model has it faster by more than this
 TORCH_FORMS = ("keys", "kv", "multi2", "u64", "segmented")
 
 
@@ -122,32 +125,26 @@ def router_calibration_path() -> str:
 
 
 class _CostModel:
-    """A model dict in the form the estimates read, its host times scaled by
-    host_scale (this host's probe over the calibration's): per-payload
-    tuples and, for each torch form, (log2 n points, log ns/key points,
-    slope, seconds added for the host), the host's part of a torch call
-    being taken as its least time over the table's first 32x of sizes."""
+    """A model dict in the form the estimates read: per-payload tuples and,
+    for each torch form, (log2 n points, log ns/key points, slope)."""
 
-    def __init__(self, model: dict, host_scale: float = 1.0):
+    def __init__(self, model: dict):
         self.model = model
-        self.host_scale = host_scale
-        self.k3_fixed_us = float(model["k3_fixed_us"]) * host_scale
+        self.k3_fixed_us = float(model["k3_fixed_us"])
         self.k3_ns = tuple(model["k3_ns_per_key_pass"])
-        self.os_fixed_us = float(model["onesweep_fixed_us"]) * host_scale
-        self.os_pass_us = float(model["onesweep_pass_us"]) * host_scale
+        self.os_fixed_us = float(model["onesweep_fixed_us"])
+        self.os_pass_us = float(model["onesweep_pass_us"])
         self.hist_ns = float(model["onesweep_hist_ns_per_key"])
         self.os_ns = tuple(model["onesweep_ns_per_key_pass"])
         self.torch = {}
         for form in TORCH_FORMS:
             pts = sorted(model["torch_ns_per_key"][form])
-            host_s = min(ns * 2.0 ** lg for lg, ns in pts if lg <= pts[0][0] + 5) * 1e-9
             self.torch[form] = (
                 [float(lg) for lg, _ in pts],
                 [math.log(ns) for _, ns in pts],
                 float(model["torch_slope"][form]),
-                (host_scale - 1.0) * host_s,
             )
-        self.compact_us = float(model["compact_us"]) * host_scale
+        self.compact_us = float(model["compact_us"])
         self.compact_ns = float(model["compact_ns_per_key"])
         self.reduce_torch_max_n = int(model["reduce_torch_max_n"])
 
@@ -158,38 +155,8 @@ _models: dict = {}  # device index (None for the CPU) -> _CostModel
 def _cost_model(device: torch.device) -> _CostModel:
     m = _models.get(device.index)
     if m is None:
-        model = _load_model(device)
-        if device.type == "cuda" and model.get("host_probe_us"):
-            if torch.cuda.is_current_stream_capturing():
-                # no probe inside a CUDA graph's capture: the calibration's
-                # host times, kept only for this call
-                return _CostModel(model)
-            scale = _host_probe_us(device) / model["host_probe_us"]
-            vlog("router: host probe %.3gx the calibration's: host times scaled by it", scale)
-            m = _CostModel(model, scale)
-        else:
-            m = _CostModel(model)
-        _models[device.index] = m
+        m = _models[device.index] = _CostModel(_load_model(device))
     return m
-
-
-def _host_probe_us(device: torch.device) -> float:
-    """Host microseconds of one small launch on `device` (torch.zeros of one
-    element: an allocation and a fill), the least of PROBE_BATCHES batches:
-    the host's speed, not its passing load, which changes from one
-    millisecond to the next. The host's speed differs up to 2.8x between
-    runs on the H100's machines (PERF.md), which moves the crossovers; the
-    calibration records this probe, and a model is read with its host times
-    scaled by the ratio of the probe now to that. It waits for no work on
-    the card: its launches queue behind the caller's."""
-    torch.zeros(1, device=device)
-    batches = []
-    for _ in range(PROBE_BATCHES):
-        start = time.perf_counter()
-        for _ in range(PROBE_CALLS):
-            torch.zeros(1, device=device)
-        batches.append((time.perf_counter() - start) / PROBE_CALLS * 1e6)
-    return min(batches)
 
 
 def _router_model(device=None) -> dict:
@@ -244,18 +211,18 @@ def _per_payloads(values: tuple, payloads: int) -> float:
 
 
 def _table_s(table, n: int) -> float:
-    """Seconds of n keys by a (log2 n, log ns/key, slope, host seconds)
-    table: geometric between its points, constant time below its first,
-    ns/key growing by `slope` a doubling past its last."""
-    lgs, log_ns, slope, host_s = table
+    """Seconds of n keys by a (log2 n, log ns/key, slope) table: geometric
+    between its points, constant time below its first, ns/key growing by
+    `slope` a doubling past its last."""
+    lgs, log_ns, slope = table
     lg = math.log2(n) if n > 1 else 0.0
     if lg <= lgs[0]:
-        return math.exp(log_ns[0]) * 2.0 ** lgs[0] * 1e-9 + host_s
+        return math.exp(log_ns[0]) * 2.0 ** lgs[0] * 1e-9
     if lg >= lgs[-1]:
-        return n * (math.exp(log_ns[-1]) + slope * (lg - lgs[-1])) * 1e-9 + host_s
+        return n * (math.exp(log_ns[-1]) + slope * (lg - lgs[-1])) * 1e-9
     i = bisect.bisect_left(lgs, lg)
     x0, x1 = lgs[i - 1], lgs[i]
-    return n * math.exp(log_ns[i - 1] + (log_ns[i] - log_ns[i - 1]) * (lg - x0) / (x1 - x0)) * 1e-9 + host_s
+    return n * math.exp(log_ns[i - 1] + (log_ns[i] - log_ns[i - 1]) * (lg - x0) / (x1 - x0)) * 1e-9
 
 
 def _compact_s(m: _CostModel, n: int) -> float:
@@ -293,6 +260,18 @@ def _cuda_sort_est_s(m: _CostModel, n: int, num_streams: int, npasses: int) -> f
     return max(host_s, n * (m.hist_ns + npasses * _per_payloads(m.os_ns, num_streams)) * 1e-9)
 
 
+def _chain_est_s(m: _CostModel, n: int, first: tuple, second: tuple) -> float:
+    """Estimated seconds of two engine sorts of n keys run one after the
+    other, each given as (payloads, passes): their sum less the second's
+    fixed time, which the host spends while the card runs the first's
+    passes."""
+    a, b = _cuda_sort_est_s(m, n, *first), _cuda_sort_est_s(m, n, *second)
+    if a == 0.0 or b == 0.0:
+        return a + b
+    fixed = m.k3_fixed_us if n <= cs.SINGLE_TILE_MAX else m.os_fixed_us
+    return a + b - min(fixed * 1e-6, b)
+
+
 def _npasses_of(positions: tuple) -> int:
     """The engine's passes over these key bits: one per 8 of them."""
     return -(-len(positions) // cs.MAX_FIELD_BITS)
@@ -301,6 +280,21 @@ def _npasses_of(positions: tuple) -> int:
 # ---------------------------------------------------------------------------
 # the routers
 # ---------------------------------------------------------------------------
+
+
+def _faster(torch_s: float, cuda_s: float) -> str:
+    """The route of a sort by its two estimates: "torch" only where the
+    model has it faster than the engine by more than TORCH_MARGIN. Within
+    that the estimates cannot tell the backends apart, and a tie goes to
+    the engine: where both are bound by their fixed times, the host's speed,
+    which moves by up to 2x from one second to the next on the H100's
+    machines, moves torch.sort's route (several launches and allocations)
+    more than the engine's one library call, so that a calibration taken at
+    a fast moment can read torch.sort's route the faster where later calls
+    find it the slower (PERF.md §6, PR 10: the largest margin a model needed
+    in five runs of the guard was 0.127).
+    """
+    return "torch" if torch_s * (1 + TORCH_MARGIN) < cuda_s else "cuda"
 
 
 def _sort_backend(backend, tensor: torch.Tensor, n: int, num_streams: int, npasses: int,
@@ -316,8 +310,7 @@ def _sort_backend(backend, tensor: torch.Tensor, n: int, num_streams: int, npass
         num_streams = 1
     if full_cover is None:
         full_cover = npasses >= cs.MAX_PASSES
-    torch_s = _torch_sort_est_s(m, n, num_streams, full_cover)
-    return "torch" if torch_s < _cuda_sort_est_s(m, n, num_streams, npasses) else "cuda"
+    return _faster(_torch_sort_est_s(m, n, num_streams, full_cover), _cuda_sort_est_s(m, n, num_streams, npasses))
 
 
 def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, extra_ops: int) -> str:
@@ -329,8 +322,7 @@ def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, ex
         return _backend.resolve_backend(backend, tensor)
     m = _cost_model(tensor.device)
     torch_s = _table_s(m.torch["u64"], n) + extra_ops * _compact_s(m, n)
-    cuda_s = _cuda_sort_est_s(m, n, 2, p_hi) + _cuda_sort_est_s(m, n, 2, p_lo)
-    return "torch" if torch_s < cuda_s else "cuda"
+    return _faster(torch_s, _chain_est_s(m, n, (2, p_lo), (2, p_hi)))
 
 
 def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, seg_passes: int,
@@ -343,8 +335,7 @@ def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, s
         return _backend.resolve_backend(backend, tensor)
     m = _cost_model(tensor.device)
     torch_s = _table_s(m.torch["segmented"], n) + (0.0 if full_cover else _compact_s(m, n))
-    cuda_s = _cuda_sort_est_s(m, n, 2, key_passes) + _cuda_sort_est_s(m, n, 2, seg_passes)
-    return "torch" if torch_s < cuda_s else "cuda"
+    return _faster(torch_s, _chain_est_s(m, n, (2, key_passes), (2, seg_passes)))
 
 
 def _reduce_backend(backend, x: torch.Tensor) -> str:
@@ -366,7 +357,7 @@ LADDER = (1 << 10, 1 << 12, 1 << 14, 24576, 24577, 1 << 15, 1 << 16, 1 << 17, 1 
           1 << 20, 1 << 22, 1 << 24, 1 << 26, 1 << 28)
 QUICK_MAX = 1 << 26  # --quick stops here
 TWO_WORD_MAX = 1 << 26  # the u64 and segmented forms stop here
-HOST_BOUND_MAX = 1 << 20  # the engine's 1-pass sorts are timed up to here
+HOST_BOUND_MAX = 1 << 20  # the engine's 1-pass sorts are timed up to here, and all sizes to here at once
 REDUCE_READINGS = 5  # the reduce's two backends are timed this many times a size
 SEGMENTS = 4096
 SEED = 20260
@@ -454,7 +445,8 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     up to 2^20 and at the largest up to 2^26, which fix its fixed times and
     rates, and the reduce REDUCE_READINGS times. `timer(calls)` takes a dict of functions by point, (backend,
     form, n, passes), and returns the seconds of one call of each; the calls
-    of one size are timed together. The default times on the card as
+    of every size up to HOST_BOUND_MAX are timed together, those of each
+    larger size together. The default times on the card as
     chip_smoke.py's guard does (in rounds, each call after an L2 flush,
     between CUDA events; the median). `echo` gets one line per
     measurement."""
@@ -506,11 +498,18 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
             minor, major_pos = words[:n], rs._seg_bits(SEGMENTS)
         return lambda: rs._sort_two_words(major, minor, major_pos, full, [iota[:n]], b)
 
-    probes = [_host_probe_us(device)] if device.type == "cuda" else []
-    # one group of calls a size, timed together, with the engine's 1-pass
-    # sorts beside its full ones where the fit compares them: at K3's limit,
-    # at the sizes where the multi-tile path is the host's, and at n_big
+    # the calls of each size, with the engine's 1-pass sorts beside its full
+    # ones where the fit compares them: at K3's limit, at the sizes where
+    # the multi-tile path is bound by its fixed time, and at n_big. Every
+    # size up to HOST_BOUND_MAX is timed in one group, so that each point's
+    # median is taken over the same moments of the host, whose speed moves
+    # by up to 2x from one second to the next on the H100's machines:
+    # torch's route is host-bound there, and timed a size at a time, one
+    # size that met a fast moment would be set against the engine's fixed
+    # time, a median pooled over all the sizes. The larger sizes, a call of
+    # which is up to 1,000x longer, a size at a time.
     one_pass_sizes = {k3_n, n_big} | {n for n in sizes if k3_n < n <= HOST_BOUND_MAX}
+    host_bound = {}
     for n in sorted(set(sizes) | {k3_n}):
         calls = {}
         for form in ("keys", "kv", "multi2"):
@@ -525,15 +524,15 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
             for form in ("u64", "segmented"):
                 for b in ("torch", "cuda"):
                     calls[(b, form, n, None)] = two_word_fn(b, form, n)
-        measure(calls)
+        if n <= HOST_BOUND_MAX:
+            host_bound.update(calls)
+        else:
+            measure(calls)
+    measure(host_bound)
 
     model = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
              "power_limit_w": _power_limit_w(device) if device.type == "cuda" else None}
     model.update(_fit_model(measured, sizes, k3_n))
-    if probes:  # the host's speed over the measurements: the probe before and after them
-        probes.append(_host_probe_us(device))
-        model["host_probe_us"] = _sig(min(probes))
-        echo(f"calibrate host probe: {probes[0]:.3f} us before, {probes[1]:.3f} us after")
     # reduce: K5 and torch's, timed together REDUCE_READINGS times a size,
     # each reading of the two in the same rounds (the host's drift, which
     # moves these times by 2x from one reading to the next on the H100,
@@ -569,14 +568,11 @@ def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
     # the engine. K3: its per-key rate by payloads from 1 and 4 passes at its
     # limit, and its fixed time, the median over its points of what the rate
     # leaves. The multi-tile path: the card's rates by payloads from 1 and 4
-    # passes at n_big; the host's times from the upper quartiles of the
-    # 1-pass and of the 4-pass sorts where the card's estimate is under half
-    # the time: fixed + 1 pass and fixed + 4 passes. Host times hardly depend
-    # on the payloads: pooled over the forms. The upper quartile, not the
-    # median: these host steps (five launches, a cumsum, a fill a pass) are
-    # twice torch.sort's whole time at small sizes and move with the host's
-    # passing load, so that near the crossover the engine wins only in some
-    # calls and torch.sort, bound by the card there, is the safer route.
+    # passes at n_big; the fixed times from the medians of the 1-pass and of
+    # the 4-pass sorts where the card's estimate is under half the time:
+    # fixed + 1 pass and fixed + 4 passes (the host's call, the launches'
+    # latency and the chain of each pass's tiles, which hardly depend on the
+    # payloads: pooled over the forms).
     def quantile(values, q):
         values = sorted(values)
         return values[int(q * (len(values) - 1) + 0.5)]
@@ -602,7 +598,7 @@ def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
                 k3_left.append(t - n * p * k3_ns[s])
             elif n * (hist + p * os_ns[s]) < t / 2:
                 host[p].append(t)
-    one, full = quantile(host[1], 0.75), quantile(host[cs.MAX_PASSES], 0.75)
+    one, full = median(host[1]), median(host[cs.MAX_PASSES])
     per_pass = max((full - one) / extra, 0.0)
     model = {
         "k3_fixed_us": _sig(max(median(k3_left), 0.0) * 1e6),
@@ -643,8 +639,8 @@ def _echo_model_check(model: dict, measured: dict, sizes: list, echo) -> None:
         "keys": lambda n: (_cuda_sort_est_s(check, n, 0, cs.MAX_PASSES), _torch_sort_est_s(check, n, 0)),
         "kv": lambda n: (_cuda_sort_est_s(check, n, 1, cs.MAX_PASSES), _torch_sort_est_s(check, n, 1)),
         "multi2": lambda n: (_cuda_sort_est_s(check, n, 2, cs.MAX_PASSES), _torch_sort_est_s(check, n, 2)),
-        "u64": lambda n: (2 * _cuda_sort_est_s(check, n, 2, cs.MAX_PASSES), _table_s(check.torch["u64"], n)),
-        "segmented": lambda n: (_cuda_sort_est_s(check, n, 2, cs.MAX_PASSES) + _cuda_sort_est_s(check, n, 2, seg_passes),
+        "u64": lambda n: (_chain_est_s(check, n, (2, cs.MAX_PASSES), (2, cs.MAX_PASSES)), _table_s(check.torch["u64"], n)),
+        "segmented": lambda n: (_chain_est_s(check, n, (2, cs.MAX_PASSES), (2, seg_passes)),
                                 _table_s(check.torch["segmented"], n)),
     }
     for n in sizes:

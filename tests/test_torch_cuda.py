@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`): each hand-written kernel
 (glu_tpu_torch/csrc/*.cu) against its plain torch version on the card, the
-whole sort against one stable torch.sort, and the reduce and scan entry
-points against their "torch" backend. Integers bit for bit; floats at
+whole sort against one stable torch.sort, the reduce and scan entry
+points against their "torch" backend, and the distributed layer on a
+1-rank NCCL group against the single-card calls. Integers bit for bit; floats at
 rtol 1e-4, atol 1e-3 (sums are taken in another order). A CUDA kernel has no
 CPU mode, so they skip where torch.cuda.is_available() is false. This file
 imports no JAX; on a GPU machine without it, run
@@ -82,6 +83,31 @@ def test_onesweep_kernels_match_plain_8_bits(dev, kind, positions, n):
     assert _onesweep_on_card(keys, pays, positions) == (1, 1)
 
 
+@pytest.mark.parametrize("n", [3 * cs.TILE + 777, (1 << 26) + 3])
+@pytest.mark.parametrize("positions", [tuple(range(32)), tuple(range(8)), (30, 3, 17, 9, 0, 22, 5, 12, 31)])
+@pytest.mark.parametrize("streams", [0, 1, 7])
+def test_onesweep_sort_matches_the_per_pass_wrappers(dev, streams, positions, n):
+    # the one-call sort (the histogram's last CTA writes the digit starts,
+    # the passes write the outputs and a scratch buffer in turn; at 2^26
+    # pairs and 4 passes one status region zeroed a pass) against
+    # digit_histograms and onesweep_pass, pass by pass; the inputs unwritten
+    keys = _words("uniform", n, dev)
+    pays = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(streams)]
+    kept = [keys.clone(), *(p.clone() for p in pays)]
+    before = cs.launch_counts()
+    got_k, got_p = cs.onesweep_sort(keys, pays, positions)
+    after = cs.launch_counts()
+    groups = cs._pass_groups(positions)
+    assert (after["digit_histograms"] - before["digit_histograms"], after["onesweep_pass"] - before["onesweep_pass"]) \
+        == (1, len(groups))
+    hist = cs.digit_histograms(keys, groups)
+    want_k, want_p = keys, pays
+    for g, base in zip(groups, torch.cumsum(hist, 1, dtype=torch.int32) - hist):
+        want_k, want_p = cs.onesweep_pass(want_k, want_p, g, base[: 1 << len(g)])
+    _assert_same([got_k, *got_p], [want_k, *want_p])
+    _assert_same([keys, *pays], kept)
+
+
 def test_digit_histograms_every_pass_at_once(dev):
     keys = _words("uniform", 1_000_003, dev)
     groups = [tuple(range(0, 8)), tuple(range(8, 16)), tuple(range(16, 24)), (31, 25, 27)]
@@ -157,13 +183,11 @@ def shipped_table(monkeypatch, tmp_path):
     router._reset_router_model()
 
 
-@pytest.mark.parametrize("n,route", [(49_152, "torch"), (1 << 22, None), (1 << 24, "cuda")])
+@pytest.mark.parametrize("n,route", [(49_152, "cuda"), (1 << 22, "cuda"), (1 << 24, "cuda")])
 def test_routed_radix_sort_launches(dev, shipped_table, n, route):
-    # backend=None launches what the shipped table's route says: no kernel
-    # at 49,152 pairs, where the engine's host steps cost more than
-    # torch.sort, 1 + 4 launches at 2^24; 2^22 lies near the measured
-    # crossover, which moves with the host's speed (the table's host times
-    # are scaled by this host's probe), so there either route may be right
+    # backend=None launches what the shipped table's route says: on the
+    # H100 the engine at every multi-tile size, 1 + 4 launches (one library
+    # call a sort, faster than torch.sort's route from 24,577 pairs up)
     keys = _words("uniform", n, dev).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     chosen = shipped_table._sort_backend(None, keys, n, 1, 4, True)
@@ -498,3 +522,108 @@ def test_reduce_and_scan_classes_on_default_device(dev):
     result = glu_tpu_torch.Reduce(glu_tpu_torch.DataType.UINT, ReduceOperator.MAX)(buf, 1000, backend="cuda")
     assert int(result) == int(data[:1000].max()) == int(buf.get_data()[0])
     np.testing.assert_array_equal(buf.get_data()[1:], data[1:])
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer on a 1-rank NCCL group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """The default group: NCCL, one rank, on the card; destroyed after the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL serves cuda tensors")
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def _dist_sort_inputs(form: str, n: int, dev):
+    rng = np.random.default_rng(n + len(form))
+    vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    if form == "f32":
+        return (torch.from_numpy(_f32_specials(rng, n)).to(dev), vals)
+    if form == "i32":
+        return (_words("uniform", n, dev), vals)
+    if form in ("u64", "u64 parts"):
+        k = torch.from_numpy(rng.integers(0, 2**64, n // 4 + 1, dtype=np.uint64)[rng.integers(0, n // 4 + 1, n)]).to(dev)
+        if form == "u64":
+            return (k, vals)
+        pairs = k.view(torch.int32).view(-1, 2)
+        return (pairs[:, 1].contiguous().view(torch.uint32), pairs[:, 0].contiguous().view(torch.uint32), vals)
+    keys = _words("mod3" if "bits" in form else "uniform", n, dev).view(torch.uint32)
+    return (keys, vals)
+
+
+_DIST_FORMS = {  # form: (distributed function, single-card function, keywords)
+    "u32": ("distributed_radix_sort", "radix_sort", {}),
+    "u32 descending, bits auto": ("distributed_radix_sort", "radix_sort", {"descending": True, "bits": "auto"}),
+    "f32": ("distributed_radix_sort_f32", "radix_sort_f32", {}),
+    "i32": ("distributed_radix_sort_i32", "radix_sort_i32", {}),
+    "u64": ("distributed_radix_sort_u64", "radix_sort_u64", {}),
+    "u64 parts": ("distributed_radix_sort_u64_parts", "radix_sort_u64_parts", {"bits": "auto"}),
+}
+
+
+@pytest.mark.parametrize("n", [10_001, 1_000_003])
+@pytest.mark.parametrize("form", list(_DIST_FORMS))
+def test_distributed_sort_one_rank_matches_single_card(dev, nccl_group, form, n):
+    # one rank is the exact fast path: the local sort alone, with its launches
+    from glu_tpu_torch import parallel
+
+    dist_name, single_name, kw = _DIST_FORMS[form]
+    args = _dist_sort_inputs(form, n, dev)
+    before = cs.launch_counts()
+    got = getattr(parallel, dist_name)(*args, backend="cuda", **kw)
+    middle = cs.launch_counts()
+    want = getattr(glu_tpu_torch, single_name)(*args, backend="cuda", **kw)
+    after = cs.launch_counts()
+    assert {k: middle[k] - before[k] for k in after} == {k: after[k] - middle[k] for k in after}
+    counts, overflow = got[-2], got[-1]
+    assert counts.dtype == overflow.dtype == torch.int32 and counts.is_cuda
+    assert counts.tolist() == [n] and overflow.tolist() == [0]
+    _assert_same([t.view(torch.uint8) for t in got[:-2]], [t.view(torch.uint8) for t in want])
+
+
+@pytest.mark.parametrize("op", list(ReduceOperator))
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32, torch.float64])
+def test_distributed_primitives_one_rank_match_single_card(dev, nccl_group, dtype, op):
+    from glu_tpu_torch import parallel
+
+    x = _fold_input(dtype, op, (1, 1_000_003), dev).reshape(-1)
+    if dtype.is_floating_point:
+        x = x.abs() if op == ReduceOperator.SUM else x  # no -0.0 prefix, which + 0.0 would make +0.0
+        x = torch.nan_to_num(x, nan=0.5)
+    pairs = [(parallel.distributed_reduce, glu_tpu_torch.reduce),
+             (parallel.distributed_exclusive_scan, glu_tpu_torch.exclusive_scan),
+             (parallel.distributed_inclusive_scan, glu_tpu_torch.inclusive_scan)]
+    for dist_fn, single_fn in pairs:
+        got = dist_fn(x, None, op, backend="cuda")
+        want = single_fn(x, op=op, backend="cuda")
+        assert got.dtype == want.dtype and got.shape == want.shape and got.is_cuda
+        assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), dist_fn.__name__
+
+
+def test_distributed_tensor_must_suit_the_group(dev, nccl_group):
+    # NCCL serves cuda tensors, gloo cpu tensors: the other raises before any collective
+    import torch.distributed as dist
+
+    from glu_tpu_torch import GluError, parallel
+
+    gloo = dist.new_group(backend="gloo")
+    on_card = torch.arange(1000, dtype=torch.int32, device=dev).view(torch.uint32)
+    on_host = torch.arange(1000, dtype=torch.int32).view(torch.uint32)
+    for keys, group in ((on_card, gloo), (on_host, None), (on_host, nccl_group)):
+        with pytest.raises(GluError, match="cannot go through a group"):
+            parallel.distributed_radix_sort(keys, keys, group)
+        with pytest.raises(GluError, match="cannot go through a group"):
+            parallel.distributed_reduce(keys, group)
+        with pytest.raises(GluError, match="cannot go through a group"):
+            parallel.distributed_exclusive_scan(keys, group)
+    dist.destroy_process_group(gloo)

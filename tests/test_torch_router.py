@@ -117,8 +117,8 @@ def test_keys_only_and_multi_payload(on_card, payloads, n, want):
 def test_pruned_bits_favor_engine(on_card):
     # torch.sort cannot exploit lost entropy and masks the key first; one
     # pass costs the engine a quarter of the card's work
-    assert router._sort_backend(None, T, 2**21, 1, 4, True) == "torch"
-    assert router._sort_backend(None, T, 2**21, 1, 1, False) == "cuda"
+    assert router._sort_backend(None, T, 2**20, 1, 4, True) == "torch"
+    assert router._sort_backend(None, T, 2**20, 1, 1, False) == "cuda"
     assert router._sort_backend(None, T, 2**28, 1, 2, False) == "cuda"
     # tiny inputs still take the faster call
     assert router._sort_backend(None, T, 2**10, 1, 1, False) == "cuda"
@@ -133,42 +133,19 @@ def test_k3_regime_edge(on_card, n, want):
     assert router._sort_backend(None, T, n, 1, 4) == want
 
 
-@pytest.mark.parametrize("scale,want", [(1.0, "cuda"), (2.0, "torch"), (0.5, "cuda")])
-def test_host_scale_moves_the_crossover(on_card, scale, want):
-    # a host twice as slow as the calibration's doubles the engine's host
-    # steps (620 us at 2^22 pairs) and adds the torch call's own host time
-    # once more (61 us): torch.sort wins there
-    router._models[None] = router._CostModel(FIXTURE, scale)
-    assert router._sort_backend(None, T, 2**22, 1, 4) == want
-    m = router._models[None]
-    assert m.k3_fixed_us == pytest.approx(30.0 * scale) and m.os_pass_us == pytest.approx(45.0 * scale)
-    base = router._CostModel(FIXTURE)
-    assert router._torch_sort_est_s(m, 2**22, 1) - router._torch_sort_est_s(base, 2**22, 1) == pytest.approx(
-        (scale - 1) * 60.0 * 1024 * 1e-9)
-
-
-def test_no_host_probe_on_the_cpu(on_card):
-    # the probe times launches on the card; a CPU model keeps the file's times
-    on_card(dict(FIXTURE, host_probe_us=1e-3))
-    assert router._cost_model(torch.device("cpu")).host_scale == 1.0
-
-
-@pytest.mark.parametrize("capturing", [False, True])
-def test_host_probe_once_and_never_in_a_capture(on_card, monkeypatch, capturing):
-    # a card's model is probed once, where it is read; inside a CUDA graph's
-    # capture nothing is launched and the calibration's times hold, for that
-    # call only
-    on_card(dict(FIXTURE, host_probe_us=4.0))
-    probes = []
-    monkeypatch.setattr(router, "_host_probe_us", lambda device: probes.append(device) or 8.0)
+@pytest.mark.parametrize("device", [torch.device("cpu"), torch.device("cuda", 0)])
+def test_model_read_once_as_measured(on_card, monkeypatch, device):
+    # a device's model is read once, where it is first routed, and kept,
+    # with the file's times as they were measured
+    reads = []
+    load = router._load_model
+    monkeypatch.setattr(router, "_load_model", lambda d: reads.append(d) or load(d))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "fixture")
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
-    card = torch.device("cuda", 0)
     for _ in range(3):
-        m = router._cost_model(card)
-        assert m.host_scale == (1.0 if capturing else 2.0)
-    assert len(probes) == (0 if capturing else 1)
-    assert (0 in router._models) == (not capturing)
+        m = router._cost_model(device)
+    assert len(reads) == 1 and device.index in router._models
+    assert (m.k3_fixed_us, m.os_fixed_us, m.os_pass_us) == (30.0, 130.0, 45.0)
+    assert router._torch_sort_est_s(m, 2**22, 1) == pytest.approx(0.1 * 2**22 * 1e-9)
 
 
 def test_explicit_choice_and_env_win(on_card, monkeypatch):
@@ -227,7 +204,10 @@ def test_u64_routes(on_card, n, p_hi, p_lo, extra, want):
 
 
 @pytest.mark.parametrize("n,key_passes,seg_passes,want", [
-    (2**16, 4, 2, "torch"), (2**20, 4, 2, "torch"), (2**24, 4, 2, "cuda"), (2**12, 4, 2, "cuda"),
+    (2**16, 4, 2, "torch"), (2**18, 4, 2, "torch"), (2**24, 4, 2, "cuda"), (2**12, 4, 2, "cuda"),
+    # torch.sort's route 16% faster than the chained engine sorts: within
+    # TORCH_MARGIN, a tie, which goes to the engine
+    (2**20, 4, 2, "cuda"),
 ])
 def test_segmented_routes(on_card, n, key_passes, seg_passes, want):
     assert router._segmented_backend(None, T, n, key_passes, seg_passes) == want
@@ -245,22 +225,22 @@ def test_reduce_backend(on_card, max_n, n, want):
 
 
 def test_router_calibration_file(shipped, monkeypatch, tmp_path):
-    # a file where torch.sort is catastrophically slow flips the 2^20 pair
-    # sort (torch on the shipped table) to the engine
+    # a file where the engine's fixed time is catastrophically long flips the
+    # 2^20 pair sort (the engine on the shipped table) to torch.sort
     cpu = torch.device("cpu")
-    assert router._sort_backend(None, T, 2**20, 1, 4) == "torch"
-    slow = dict(FIXTURE, device="vTEST", torch_ns_per_key={f: [[10, 500.0], [28, 500.0]] for f in router.TORCH_FORMS})
+    assert router._sort_backend(None, T, 2**20, 1, 4) == "cuda"
+    slow = dict(FIXTURE, device="vTEST", onesweep_fixed_us=1e9)
     p = tmp_path / "router.json"
     monkeypatch.setenv(ENV_MODEL, _write(p, slow))
     router._reset_router_model()
     assert router.router_calibration_path() == str(p)
     assert router._router_model(cpu)["device"] == "vTEST"
-    assert router._sort_backend(None, T, 2**20, 1, 4) == "cuda"
+    assert router._sort_backend(None, T, 2**20, 1, 4) == "torch"
     # unreadable: the shipped table
     p.write_text("{nope")
     router._reset_router_model()
     assert router._router_model(cpu)["device"] == router._H100_MODEL["device"]
-    assert router._sort_backend(None, T, 2**20, 1, 4) == "torch"
+    assert router._sort_backend(None, T, 2**20, 1, 4) == "cuda"
     # absent: the same
     monkeypatch.setenv(ENV_MODEL, str(tmp_path / "absent.json"))
     router._reset_router_model()
@@ -333,10 +313,12 @@ def test_calibrate_writes_a_model_that_routes_as_measured(on_card, monkeypatch, 
     monkeypatch.setenv(ENV_MODEL, str(out))
     router._reset_router_model()
     assert router._router_model(torch.device("cpu")) == {**router._H100_MODEL, **model}
-    # the model routes as its timings say, at sizes it never measured
-    for n in (200, 700, 3000, 2**21, 2**26):
+    # the model routes as its timings say, at sizes it never measured, away
+    # from its ties (torch within TORCH_MARGIN of the engine)
+    for n in (200, 700, 1500, 2**21, 2**26):
         for streams, form in ((0, "keys"), (1, "kv"), (2, "multi2")):
-            faster = "torch" if _card_like("torch", form, n, None) < _card_like("cuda", form, n, 4) else "cuda"
+            torch_t, cuda_t = _card_like("torch", form, n, None), _card_like("cuda", form, n, 4)
+            faster = "torch" if torch_t * (1 + router.TORCH_MARGIN) < cuda_t else "cuda"
             assert router._sort_backend(None, T, n, streams, 4) == faster, (n, form)
     assert router._reduce_backend(None, torch.zeros(4096)) == "torch"
     assert router._reduce_backend(None, torch.zeros(4097)) == "cuda"
@@ -427,15 +409,48 @@ def test_guard_flags_an_inverted_model(on_card):
 
 
 @pytest.mark.parametrize("n,want", [
-    (1024, "cuda"), (16_384, "cuda"), (24_577, "torch"), (49_152, "torch"), (2**20, "torch"), (2**21, "torch"),
+    (1024, "cuda"), (16_384, "cuda"), (24_577, "cuda"), (49_152, "cuda"), (2**20, "cuda"), (2**21, "cuda"),
     (2**23, "cuda"), (2**24, "cuda"), (2**28, "cuda"),
 ])
 def test_shipped_table_kv_crossover(shipped, n, want):
-    # the H100's measured crossovers, at the calibration's host speed: K3 up
-    # to its limit, then torch.sort until the card's work outweighs the
-    # engine's host steps, between 2^21 and 2^23 pairs (2^22 moves with the
-    # host's speed); the engine at the 2^28 headline
+    # the H100's measured routes, at the calibration's host speed: K3 up to
+    # its limit, then the histogram and the passes in one library call,
+    # faster than torch.sort's route at every size (no crossover left)
     assert router._sort_backend(None, T, n, 1, 4) == want
+
+
+@pytest.mark.parametrize("n", [24_577, 2**16, 2**18, 2**20, 2**22])
+def test_shipped_table_routes_every_sort_to_the_engine(shipped, n):
+    # on the H100 the engine's one library call a sort beats torch.sort's
+    # route at every size and form; torch's call takes every reduce to 2^28
+    assert router._sort_backend(None, T, n, 1, 4) == "cuda"
+    assert router._sort_backend(None, T, n, 0, 4) == "cuda"
+    assert router._sort_backend(None, T, n, 2, 4) == "cuda"
+    assert router._sort_backend(None, T, n, 1, 1, False) == "cuda"
+    assert router._u64_backend(None, T, n, 4, 4, 0) == "cuda"
+    assert router._segmented_backend(None, T, n, 4, 2) == "cuda"
+    assert router._reduce_backend(None, torch.zeros(n)) == "torch"
+
+
+def test_chained_sorts_overlap_the_second_fixed_time(on_card):
+    # u64 keys and segments chain two engine sorts: the second's fixed time
+    # is spent on the host while the card runs the first
+    m = router._CostModel(FIXTURE)
+    one = router._cuda_sort_est_s(m, 2**16, 2, 4)
+    assert router._chain_est_s(m, 2**16, (2, 4), (2, 4)) == pytest.approx(2 * one - 130e-6)
+    assert router._chain_est_s(m, 2**10, (2, 4), (2, 4)) == pytest.approx(
+        2 * router._cuda_sort_est_s(m, 2**10, 2, 4) - 30e-6)
+    assert router._chain_est_s(m, 2**16, (2, 4), (2, 0)) == pytest.approx(one)
+
+
+def test_ties_go_to_the_engine(on_card):
+    # torch.sort takes a sort only where the model has it faster by more
+    # than TORCH_MARGIN
+    m = router._CostModel(FIXTURE)
+    router._models[None] = m
+    assert router._faster(1.0, 1.0 + router.TORCH_MARGIN) == "cuda"
+    assert router._faster(1.0, 1.0 + 1.01 * router.TORCH_MARGIN) == "torch"
+    assert router._faster(1.0, 0.5) == "cuda"
 
 
 def test_shipped_table_pruned_and_wide(shipped):

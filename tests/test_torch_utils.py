@@ -132,7 +132,8 @@ def test_import_has_no_jax():
     # a fresh interpreter: this test process has already imported jax
     code = (
         "import sys, glu_tpu_torch, glu_tpu_torch.ops._cuda_sort, glu_tpu_torch.ops._cuda_scan,"
-        " glu_tpu_torch.ops._cuda_reduce; sys.exit('jax' in sys.modules or 'glu_tpu' in sys.modules)"
+        " glu_tpu_torch.ops._cuda_reduce, glu_tpu_torch.parallel;"
+        " sys.exit('jax' in sys.modules or 'glu_tpu' in sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
