@@ -100,6 +100,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,6 +137,8 @@ DIST_WORLD_SIZES = (4, 8)
 DIST_SAMPLES = 8192
 DIST_SMALL_N = 10_000
 DIST_VARIANT_N = 1 << 24  # the f32, i32 and u64 distributed sorts
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SINGLE_FILE_TIMEOUT_S = 600  # tools/single_file_smoke.py: the build (about 20 s on the H100) and 4 calls
 
 
 def _bound(nbytes: float, ops: float):
@@ -599,6 +602,73 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
         print(f"time {label}, rank 0 of D=4 (2^26 pairs a rank): {ms:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes} bytes over 3.35 TB/s) {tag}")
     print(f"distributed layer: phase 11 passed ({time.perf_counter() - t0:.1f} s)")
+    return launched
+
+
+def _entry_and_single_file(torch, tag: str, turns) -> dict:
+    """Phase 12: the entry point (glu_tpu_torch/entry.py) and the single
+    file (dist/glu_tpu_torch_single.py); see the module's docstring. Returns
+    the kernels' launches in (a), the entry's one call."""
+    from glu_tpu_torch import _build, radix_sort
+    from glu_tpu_torch.entry import dryrun_multichip, entry
+    from glu_tpu_torch.ops import _cuda_reduce as cr
+    from glu_tpu_torch.ops import _cuda_scan as csc
+    from glu_tpu_torch.ops import _cuda_sort as cs
+
+    t0 = time.perf_counter()
+    # -- (a) entry() on the card --------------------------------------------------
+    fn, args = entry()
+    torch.cuda.synchronize()
+    for m in (cs, csc, cr):
+        m.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launched = {**cs.launch_counts(), **csc.launch_counts(), **cr.launch_counts()}
+    want = {"digit_histograms": 1, "onesweep_pass": 4, "sort_single_tile": 0, "exclusive_scan": 0, "reduce": 0}
+    if launched != want:
+        raise AssertionError(f"entry()'s fn launched {launched}, want {want}")
+    ref = radix_sort(*args, backend="torch")
+    for i, (g, r) in enumerate(zip(out, ref)):
+        if g.dtype != torch.uint32 or g.shape != args[0].shape or not torch.equal(g.view(torch.int32),
+                                                                                  r.view(torch.int32)):
+            raise AssertionError(f"entry()'s fn output {i} differs from radix_sort(backend='torch')")
+    keys, values = (a.view(torch.int32) for a in args)
+
+    def sort_and_gather():
+        r = torch.sort(keys, stable=True)
+        return r.values, values[r.indices]
+
+    entry_ms, lib_ms = turns(lambda: fn(*args), sort_and_gather, reps=20)
+    print(f"entry (a): fn(*args) on {args[0].shape[0]} u32 pairs on {args[0].device} bit-identical to "
+          f"radix_sort(backend='torch'), launches {launched}")
+    print(f"time entry() fn ({args[0].shape[0]} pairs): {entry_ms:.4f} ms; torch.sort(stable)+gather "
+          f"{lib_ms:.4f} ms {tag}")
+    del fn, args, out, ref, keys, values
+
+    # -- (b) dryrun_multichip on the cards and over gloo ------------------------------
+    torch.cuda.empty_cache()
+    for n, device in ((min(torch.cuda.device_count(), 4), None), (2, "cpu")):
+        t = time.perf_counter()
+        dryrun_multichip(n, device=device)
+        print(f"entry (b): dryrun_multichip({n}, device={device!r}) passed in {time.perf_counter() - t:.1f} s")
+
+    # -- (c) the single file, alone in a process ---------------------------------------
+    shutil.rmtree(os.path.join(ROOT, "dist", "_build"), ignore_errors=True)
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "single_file_smoke.py")],
+                          capture_output=True, text=True, timeout=SINGLE_FILE_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        print(f"single file: {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"tools/single_file_smoke.py exited with {proc.returncode}")
+    result = json.loads(proc.stdout.splitlines()[-1])
+    package_library = _build._library_path().name
+    if result["library"] != package_library or not result["build_s"] > 0:
+        raise AssertionError(f"the single file built {result['library']} in {result['build_s']} s; the package's "
+                             f"library is {package_library}")
+    print(f"single file: built from its strings in {result['build_s']:.3f} s, library {result['library']} = the "
+          f"package's {tag}")
+    print(f"entry and single file: phase 12 passed ({time.perf_counter() - t0:.1f} s)")
     return launched
 
 
@@ -1250,6 +1320,10 @@ def main() -> int:
 
     # -- 11. the distributed layer -----------------------------------------------
     for name, count in _distributed_layer(torch, dev, gen, tag, median_ms, turns).items():
+        launches[name] += count
+
+    # -- 12. the entry point and the single file -----------------------------------
+    for name, count in _entry_and_single_file(torch, tag, turns).items():
         launches[name] += count
 
     kernels = {  # name: (source, TPU kernel it replaces)

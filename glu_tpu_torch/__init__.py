@@ -12,7 +12,11 @@ kernel K5 in csrc/reduce.cu) and the scan (`exclusive_scan`,
 router that picks the kernels or torch's call for a sort or reduce given
 `backend=None`, by a cost model measured per card (ops/router.py); and the
 subpackage `glu_tpu_torch.parallel` (not imported here): the distributed
-sort, reduce and scans over a torch.distributed process group. A function
+sort, reduce and scans over a torch.distributed process group; the module
+`glu_tpu_torch.entry` (not imported here): the entry points, the
+main path's sort and a dry run of the distributed layer; and
+`python -m glu_tpu_torch.amalgamate`, which writes the whole package as one
+file, dist/glu_tpu_torch_single.py. A function
 given a tensor works on the tensor's device; a function that makes a tensor
 (`from_numpy`, `DeviceBuffer`, `RadixSort.prepare_internal_buffers`) puts
 it on the card unless given `device=`. The package imports torch and never

@@ -1,12 +1,16 @@
 """Builds the hand-written CUDA kernels and loads them with ctypes.
 
-`load_library()` compiles every `csrc/*.cu` of the package with nvcc for
-Hopper (sm_90a), one nvcc process per source, all started together, and
-links the objects into one shared library with a plain C interface, at
-first use, into `_build/` beside this file (listed in .gitignore). The
-library's name carries a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. A failed build raises
-with nvcc's output: there is no fallback.
+`load_library()` compiles every `*.cu` kernel source with nvcc for Hopper
+(sm_90a), one nvcc process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use,
+into `_build/` beside this file (listed in .gitignore). The sources are
+texts (`kernel_sources()`): the files of `csrc/` beside the package, or the
+strings that the single-file distribution carries. `build()` writes them
+into a staging directory under `_build/` and compiles them there, so that
+their `#include "..."` lines resolve the same way in both. The library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. A failed build raises with
+nvcc's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import time
 
 from .utils.errors import GluError
@@ -47,15 +52,21 @@ def nvcc_command(sources: list[pathlib.Path], output: pathlib.Path, *, shared: b
     return [_nvcc(), *_FLAGS, "-shared" if shared else "-c", "-o", str(output), *map(str, sources)]
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(_CSRC.glob("*.cu"))
+def kernel_sources() -> dict[str, str]:
+    """{file name: text} of every kernel source (`*.cu` and `*.cuh`), in name
+    order: the package's `_CUDA_SOURCES` where it carries them as strings
+    (the single-file distribution), else the files of `csrc/`."""
+    carried = getattr(sys.modules[__package__], "_CUDA_SOURCES", None)
+    if carried is not None:
+        return dict(sorted(carried.items()))
+    return {f.name: f.read_bytes().decode() for f in sorted(_CSRC.glob("*.cu*"))}
 
 
 def _library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for f in sorted(_CSRC.glob("*.cu*")):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    for name, text in kernel_sources().items():
+        h.update(name.encode())
+        h.update(text.encode())
     return _BUILD / f"libglu_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -87,11 +98,16 @@ def build() -> tuple[pathlib.Path, float, str]:
         return so, 0.0, log.read_text() if log.exists() else ""
     _BUILD.mkdir(exist_ok=True)
     tag = f"{so.name}.{os.getpid()}"
-    objects = [_BUILD / f"{tag}.{src.stem}.o" for src in _sources()]
+    staging = _BUILD / f"{tag}.src"  # this build's sources and objects
     tmp = _BUILD / f"{tag}.tmp"
     start = time.perf_counter()
     try:
-        results = run_all([nvcc_command([src], o) for src, o in zip(_sources(), objects)])
+        staging.mkdir(exist_ok=True)
+        for name, text in kernel_sources().items():
+            (staging / name).write_bytes(text.encode())
+        sources = sorted(staging.glob("*.cu"))
+        objects = [src.with_suffix(".o") for src in sources]
+        results = run_all([nvcc_command([src], o) for src, o in zip(sources, objects)])
         output = "".join(out for _, out in results)
         if any(rc != 0 for rc, _ in results):
             raise GluError(f"nvcc failed:\n{output}")
@@ -102,8 +118,8 @@ def build() -> tuple[pathlib.Path, float, str]:
         log.write_text(output)
         os.replace(tmp, so)  # atomic: a concurrent process sees no half-written library
     finally:
-        for f in [*objects, tmp]:
-            f.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+        shutil.rmtree(staging, ignore_errors=True)
     return so, time.perf_counter() - start, output
 
 
