@@ -12,9 +12,13 @@ Phases, each of which raises (exit code 1) on any failure:
      against its plain torch version on the card, bit for bit, at the main
      path's shape and at small ragged shapes: uniform, constant and 3-valued
      keys, 8-bit, 1-bit, top-byte and non-contiguous digits, 0, 1 and 7
-     payloads; K3 at n = 1, 2, 1000, 10000 and its limit SINGLE_TILE_MAX
-     with 32 bits (4 passes of 8), 12 bits (8 + 4), the top byte and 5
-     scattered bits; and the one-call multi-tile sort (onesweep_sort, which
+     payloads; K3 at n = 1, 2, 1000 and CTA_MAX on one CTA, and on its
+     cluster at CTA_MAX + 1, 10000, 24,576, 24,577, 32,768, 49,153, 65,535
+     and its limit SINGLE_TILE_MAX, with 32 bits (4 passes of 8), 12 bits
+     (8 + 4), the top byte and 5 scattered bits; K3 on every CTA count that
+     holds 16,384, 49,153 and 65,536 elements, and a launch on too few CTAs
+     raising GluError from the C entry's error; and the one-call multi-tile
+     sort (onesweep_sort, which
      radix_sort runs) against the two wrappers it runs, pass by pass, with
      1, 2 and 4 passes, at the small ragged shape and at 2**28 pairs;
   4. the sort's main path: glu_tpu_torch.radix_sort on 2**28 u32 key/value
@@ -23,7 +27,8 @@ Phases, each of which raises (exit code 1) on any failure:
   5. launch counts of the sort: the 2**28 sort ran digit_histograms once,
      onesweep_pass 4 times and sort_single_tile never, and so did a sort of
      SINGLE_TILE_MAX + 1 pairs; num_steps=3 (12 bits) 1 and 2 times; the
-     sorts of 10,000 and SINGLE_TILE_MAX pairs ran sort_single_tile alone;
+     sorts of 10,000, CTA_MAX + 1 and SINGLE_TILE_MAX pairs ran
+     sort_single_tile alone;
   6. the sort variants at full width, each bit for bit against the same
      call with backend="torch", with the launch counts set to 0 before each
      call and checked after it: radix_sort_keys, radix_argsort(descending=
@@ -62,11 +67,15 @@ Phases, each of which raises (exit code 1) on any failure:
      profile (torch.profiler) of one 2**28 sort, scan and reduce and of the
      two vector reduces; the vector reduces against torch.sum(x, 0) and
      torch.amin(x, 0); the host time per call of K5's wrapper and of
-     torch.sum; K3's kernel alone (profiler), its wrapper, its host time per
-     call and radix_sort at 16,384 pairs and at SINGLE_TILE_MAX, and the
-     crossover table of K3, the histogram + onesweep path through the
-     per-pass wrappers, torch.sort(stable) + gather, radix_sort on the
-     kernels (one library call) and routed, from 1,024 to 2**20 pairs, and
+     torch.sum; K3's kernel alone (the profiler over 20 launches, and 200
+     launches back to back between CUDA events), its wrapper, its host time per
+     call and radix_sort at CTA_MAX, at 16,384 pairs and at SINGLE_TILE_MAX;
+     K3 on 1, 2, 3, 4 and 8 CTAs, a line each, at 65,536 pairs or the most
+     of 49,152, 32,768 and 16,384 that they hold; the crossover table of K3, the
+     histogram + onesweep path through the per-pass wrappers and as one
+     library call (onesweep_sort), torch.sort(stable) + gather, radix_sort
+     on the kernels and routed, from 1,024 to 2**20 pairs; K3, onesweep_sort
+     and torch.sort at 65,536 pairs after an L2 flush, in turns; and
      the 2**28-pair multi-tile sort as one call against the per-pass
      wrappers, in turns;
  10. the router guard (_router_guard): a quick calibration into a temporary
@@ -87,7 +96,13 @@ Phases, each of which raises (exit code 1) on any failure:
      transfer replaced by slicing along ragged_exchange_plan), joined bit
      for bit against radix_sort(backend="torch"); timings of the 1-rank sort
      against radix_sort and of rank 0's _bucket_of, partition and local
-     sort at D = 4 beside their bounds. Its launches join the kernels line.
+     sort at D = 4 beside their bounds. Its launches join the kernels line;
+ 12. the entry point and the single file (_entry_and_single_file): entry()'s
+     fn on the card, one sort_single_tile launch (K3 on a cluster) and
+     nothing else, bit for bit against backend "torch" and timed against
+     torch.sort(stable) + gather (its launches join the kernels line);
+     dryrun_multichip on the cards and over 2 gloo ranks; and
+     tools/single_file_smoke.py in its own process, built from its strings.
 Phases 3-9 and 11 check and time the kernels: each call passes backend="cuda", so
 that the router cannot turn a kernel check into one of torch against torch.
 No calibration file is read: the router uses the shipped table, and phase
@@ -112,7 +127,8 @@ MAIN_N = 1 << 28
 VEC_U32 = (MAIN_N // 4, 4)
 VEC_F64 = (MAIN_N // 8, 4)
 K3_N = 16384  # K3's timed shape in the kernels line (its limit before the 8-bit redesign)
-CROSSOVER_N = (1024, 4096, 16384, 24576, 32768, 65536, 1 << 17, 1 << 18, 1 << 20)
+CROSSOVER_N = (1024, 4096, 8192, 16384, 24576, 24577, 32768, 49152, 65536, 65537, 1 << 17, 1 << 18, 1 << 20)
+K3_CTAS = (1, 2, 3, 4, 8)  # K3's CTA counts timed at 65,536 pairs, or the most of 49,152, 32,768, 16,384 they hold
 # the router guard's cycles of its 4 entries up to 2**22 elements (3 calls
 # of each a cycle), where the host's time is most of a call: on the H100 the
 # median of a routed entry read up to 14% off that of the backend it took
@@ -213,6 +229,29 @@ def _profile_kernels(torch, fn) -> list:
     return lines
 
 
+def _kernel_device_ms(torch, fn, calls: int = 20):
+    """Median device ms of the kernel launches of `calls` calls of fn traced
+    together by torch.profiler, or None when it saw no device time. One
+    call of a kernel of well under a millisecond (K3's), traced alone late
+    in this script, has shown none on the H100, where the same call traced
+    early in a process of its own showed it."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0)
+    return times[len(times) // 2] if times else None
+
+
 def _router_guard(torch, dev, gen, tag: str) -> None:
     """Phase 10: the router guard. A quick calibration into a temporary
     file; then, at each point, backend=None under the shipped table and
@@ -250,6 +289,8 @@ def _router_guard(torch, dev, gen, tag: str) -> None:
                         onesweep_fixed_us=shipped["onesweep_fixed_us"] / 100,
                         onesweep_pass_us=shipped["onesweep_pass_us"] / 100,
                         k3_ns_per_key_pass=[r * 100 for r in shipped["k3_ns_per_key_pass"]],
+                        k3_cluster_fixed_us=shipped["k3_cluster_fixed_us"] / 100,
+                        k3_cluster_ns_per_key_pass=[r * 100 for r in shipped["k3_cluster_ns_per_key_pass"]],
                         onesweep_hist_ns_per_key=shipped["onesweep_hist_ns_per_key"] * 100,
                         onesweep_ns_per_key_pass=[r * 100 for r in shipped["onesweep_ns_per_key_pass"]])
         with open(paths["inverted"], "w") as f:
@@ -624,7 +665,7 @@ def _entry_and_single_file(torch, tag: str, turns) -> dict:
     out = fn(*args)
     torch.cuda.synchronize()
     launched = {**cs.launch_counts(), **csc.launch_counts(), **cr.launch_counts()}
-    want = {"digit_histograms": 1, "onesweep_pass": 4, "sort_single_tile": 0, "exclusive_scan": 0, "reduce": 0}
+    want = {"digit_histograms": 0, "onesweep_pass": 0, "sort_single_tile": 1, "exclusive_scan": 0, "reduce": 0}
     if launched != want:
         raise AssertionError(f"entry()'s fn launched {launched}, want {want}")
     ref = radix_sort(*args, backend="torch")
@@ -775,7 +816,7 @@ def main() -> int:
                    [want_k, *want_p])
         del keys, pays, got_k, got_p, want_k, want_p, hist
     k3_cases = 0
-    for n in (1, 2, 1000, 10000, cs.SINGLE_TILE_MAX):
+    for n in (1, 2, 1000, cs.CTA_MAX, cs.CTA_MAX + 1, 10000, 24576, 24577, 32768, 49153, 65535, cs.SINGLE_TILE_MAX):
         for kd in ("uniform", "constant", "mod3"):
             for pos in (tuple(range(32)), tuple(range(12)), tuple(range(24, 32)), (31, 0, 17, 5, 9)):
                 for ns in (0, 1, 7):
@@ -787,6 +828,37 @@ def main() -> int:
                     check_same("sort_single_tile", f"n={n} keys={kd} bits={pos} payloads={ns}",
                                [got[0], *got[1]], [want[0], *want[1]])
                     k3_cases += 1
+    # every CTA count that holds the input, one CTA and every cluster,
+    # against the plain version
+    for n in (cs.SLICE_MAX, 49153, cs.SINGLE_TILE_MAX):
+        for ctas in range(1, cs.MAX_CLUSTER + 1):
+            if cs.single_tile_slice(n, ctas) > cs.SLICE_MAX:
+                continue
+            for pos in (tuple(range(32)), (31, 0, 17, 5, 9)):
+                for ns in (1, 7):
+                    keys = words(n, "uniform")
+                    pays = [torch.arange(n, dtype=torch.int32, device=dev)] + [words(n, "uniform") for _ in range(ns - 1)]
+                    got = cs.sort_single_tile(keys, pays, pos, ctas=ctas)
+                    want = cs.sort_single_tile_ref(keys, pays, pos)
+                    check_same("sort_single_tile", f"n={n} ctas={ctas} bits={pos} payloads={ns}",
+                               [got[0], *got[1]], [want[0], *want[1]])
+                    k3_cases += 1
+    # too few CTAs for the input (slices over SLICE_MAX): the C entry
+    # refuses the launch and the wrapper's error check raises
+    keys = words(cs.SINGLE_TILE_MAX, "uniform")
+    before = cs.launch_counts()["sort_single_tile"]
+    try:
+        cs._launch("glu_sort_single_tile", dev, cs._pointers([keys]), cs._pointers([torch.empty_like(keys)]), 1,
+                   keys.numel(), *cs._single_tile_plan(tuple(range(32)))[1], 2)
+    except glu_tpu_torch.GluError as e:
+        print(f"K3 on 2 CTAs of {keys.numel()} elements (slices over SLICE_MAX): refused, {e}")
+    else:
+        raise AssertionError("K3 launched on 2 CTAs for 65,536 elements")
+    if cs.launch_counts()["sort_single_tile"] != before:
+        raise AssertionError("a refused K3 launch was counted")
+    print(f"K3 clusters the card holds at once (cudaOccupancyMaxActiveClusters): "
+          f"{ {c: cs._sort_lib().glu_sort_single_tile_clusters(c) for c in range(2, cs.MAX_CLUSTER + 1)} }")
+    del keys
     torch.cuda.synchronize()
     print(f"kernels vs plain versions: bit-identical, max_abs_err {max_err} "
           f"({len(pass_cases)} histogram/onesweep cases, {len(fused_cases)} one-call sorts against the per-pass "
@@ -808,6 +880,7 @@ def main() -> int:
         ("2^24 presorted", 1 << 24, "presorted", 0),
         ("2^24 reversed", 1 << 24, "reversed", 0),
         ("10000 uniform (single tile)", 10_000, "uniform", 0),
+        ("CTA_MAX+1 uniform (single tile, a cluster)", cs.CTA_MAX + 1, "uniform", 0),
         ("SINGLE_TILE_MAX uniform (single tile)", cs.SINGLE_TILE_MAX, "uniform", 0),
         ("SINGLE_TILE_MAX+1 uniform", cs.SINGLE_TILE_MAX + 1, "uniform", 0),
         ("n=0", 0, "uniform", 0),
@@ -845,8 +918,8 @@ def main() -> int:
 
     # -- 5. launch counts -----------------------------------------------------
     want_launches = {"2^28 uniform": (1, 4, 0), "2^24 uniform num_steps=3": (1, 2, 0),
-                     "10000 uniform (single tile)": (0, 0, 1), "SINGLE_TILE_MAX uniform (single tile)": (0, 0, 1),
-                     "SINGLE_TILE_MAX+1 uniform": (1, 4, 0)}
+                     "10000 uniform (single tile)": (0, 0, 1), "CTA_MAX+1 uniform (single tile, a cluster)": (0, 0, 1),
+                     "SINGLE_TILE_MAX uniform (single tile)": (0, 0, 1), "SINGLE_TILE_MAX+1 uniform": (1, 4, 0)}
     for label, want in want_launches.items():
         got = tuple(per_case[label][k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile"))
         if got != want:
@@ -880,6 +953,28 @@ def main() -> int:
             times.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         return sorted(times)[reps // 2] * 1e6
+
+    def back_to_back_ms(fn, launches: int = 200) -> float:
+        """Device ms a call of fn over `launches` calls queued back to back
+        between two CUDA events, for a kernel whose host time is shorter
+        than its device time (K3's): the kernel alone, where the profiler
+        sees none."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / launches
+
+    def k3_kernel_text(fn) -> str:
+        """K3's kernel alone: the profiler's median of 20 traced calls, and
+        the device ms a call of 200 queued back to back."""
+        traced = _kernel_device_ms(torch, fn)
+        return (f"{'not measured' if traced is None else f'{traced:.4f} ms'} by the profiler (median of 20 "
+                f"launches), {back_to_back_ms(fn):.4f} ms a launch of 200 back to back")
 
     def turns(kernel_fn, plain_fn, reps: int = REPS):
         """(kernel ms, plain ms): the lower of two medians each, measured in
@@ -1218,18 +1313,25 @@ def main() -> int:
         return r.values, v[r.indices]
 
     library = {"digit_histograms": None, "onesweep_pass": None}
-    for n in (K3_N, cs.SINGLE_TILE_MAX):  # K3: the kernel alone, its wrapper, the host, the entry point
+    for n in (cs.CTA_MAX, K3_N, cs.SINGLE_TILE_MAX):  # K3: the kernel alone, its wrapper, the host, the entry point
         sk, sv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
         k3 = lambda: cs.sort_single_tile(sk, [sv], full)  # noqa: E731
         k3_ms, plain_ms = turns(k3, lambda: cs.sort_single_tile_ref(sk, [sv], full), reps=20)
         api_ms = median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(sk), as_u32(sv), backend="cuda"), reps=20)
         lib_ms = median_ms(lambda: sort_and_gather(sk, sv), reps=20)
-        print(f"time sort_single_tile ({n} pairs, 32 bits): wrapper {k3_ms:.4f} ms, host {host_us(k3):.1f} us "
-              f"per call, radix_sort {api_ms:.4f} ms, torch.sort(stable)+gather {lib_ms:.4f} ms {tag}")
-        for line in _profile_kernels(torch, k3):
-            print(f"profile sort_single_tile ({n} pairs, 32 bits): {line} {tag}")
+        print(f"time sort_single_tile ({n} pairs, 32 bits, {cs.single_tile_ctas(n)} CTAs): wrapper {k3_ms:.4f} ms, "
+              f"plain torch {plain_ms:.4f} ms, host {host_us(k3):.1f} us per call, radix_sort {api_ms:.4f} ms, "
+              f"torch.sort(stable)+gather {lib_ms:.4f} ms {tag}")
+        print(f"time sort_single_tile ({n} pairs, 32 bits): kernel {k3_kernel_text(k3)} {tag}")
         if n == K3_N:
             timing["sort_single_tile"], library["sort_single_tile"] = (k3_ms, plain_ms), lib_ms
+        del sk, sv
+    for ctas in K3_CTAS:  # K3 on each CTA count: the wrapper, then the kernel alone
+        n = next(m for m in (cs.SINGLE_TILE_MAX, 49152, 32768, 16384) if cs.single_tile_slice(m, ctas) <= cs.SLICE_MAX)
+        sk, sv = words(n, "uniform"), torch.arange(n, dtype=torch.int32, device=dev)
+        k3 = lambda: cs.sort_single_tile(sk, [sv], full, ctas=ctas)  # noqa: E731
+        print(f"time sort_single_tile on {ctas} CTAs ({n} pairs, 32 bits): wrapper {median_ms(k3, reps=20):.4f} ms, "
+              f"kernel {k3_kernel_text(k3)} {tag}")
         del sk, sv
 
     def onesweep_path(k, v):
@@ -1245,11 +1347,37 @@ def main() -> int:
         k3_text = (f"{median_ms(lambda: cs.sort_single_tile(ck, [cv], full), reps=20):.4f}"
                    if n <= cs.SINGLE_TILE_MAX else "- (above its limit)")
         print(f"crossover n={n} (32-bit pairs, ms): sort_single_tile {k3_text}, histogram + onesweep per pass "
-              f"{median_ms(lambda: onesweep_path(ck, cv), reps=20):.4f}, torch.sort(stable)+gather "
+              f"{median_ms(lambda: onesweep_path(ck, cv), reps=20):.4f}, onesweep_sort (one call) "
+              f"{median_ms(lambda: cs.onesweep_sort(ck, [cv], full), reps=20):.4f}, torch.sort(stable)+gather "
               f"{median_ms(lambda: sort_and_gather(ck, cv), reps=20):.4f}, radix_sort backend cuda "
               f"{median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv), backend='cuda'), reps=20):.4f}"
               f", routed {median_ms(lambda: glu_tpu_torch.radix_sort(as_u32(ck), as_u32(cv)), reps=20):.4f} {tag}")
         del ck, cv
+    # K3 at its limit against the multi-tile engine's one call at the same
+    # n and torch.sort, the way phase 10 times them: one call at a time in
+    # turns, each after an L2 flush (the card idle and its caches cold)
+    from glu_tpu_torch.ops import router
+
+    flush = router.l2_flush(dev)
+    ck, cv = words(cs.SINGLE_TILE_MAX, "uniform"), torch.arange(cs.SINGLE_TILE_MAX, dtype=torch.int32, device=dev)
+    cold = {"sort_single_tile": lambda: cs.sort_single_tile(ck, [cv], full),
+            "onesweep_sort": lambda: cs.onesweep_sort(ck, [cv], full),
+            "torch.sort(stable)+gather": lambda: sort_and_gather(ck, cv)}
+    cold_ms = {name: [] for name in cold}
+    for fn in cold.values():
+        fn()
+    for _ in range(100):
+        for name, fn in cold.items():
+            flush()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            cold_ms[name].append(start.elapsed_time(end))
+    print(f"time {cs.SINGLE_TILE_MAX} pairs after an L2 flush, in turns (medians of 100, ms): "
+          + ", ".join(f"{name} {sorted(t)[50]:.4f}" for name, t in cold_ms.items()) + f" {tag}")
+    del ck, cv, flush
     ck, cv = words(MAIN_N, "uniform"), torch.arange(MAIN_N, dtype=torch.int32, device=dev)
     one_ms, per_ms = turns(lambda: cs.onesweep_sort(ck, [cv], full), lambda: onesweep_path(ck, cv))
     print(f"time the 2^28-pair multi-tile sort: one library call (onesweep_sort) {one_ms:.4f} ms, the same "

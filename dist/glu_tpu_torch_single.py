@@ -254,8 +254,8 @@ def load_library() -> ctypes.CDLL:
 def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_sort_bins",
-                 "glu_fold_tile", "glu_scan_tile"):
+    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_slice_max",
+                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -268,14 +268,16 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_onesweep_sort_work_words.argtypes = [c_int, c_int]
     # (in, out and tmp pointers, stream count, n, bit positions, bits per pass, passes, work, stream)
     lib.glu_onesweep_sort.argtypes = [ptr, ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr, ptr]
-    # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, stream)
-    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr]
+    # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, CTAs, stream)
+    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, c_int, ptr]
+    # (CTAs) -> clusters of K3 the device holds at once
+    lib.glu_sort_single_tile_clusters.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_reduce", "glu_scan_pass"):
+                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass"):
         getattr(lib, name).restype = c_int
     return lib
 ''',
@@ -312,7 +314,7 @@ from .ops.radix_sort import radix_sort
 from .utils.buffers import default_device, from_numpy, to_numpy
 from .utils.errors import GluError, check_argument, check_state
 
-ENTRY_N = 65536  # pairs of entry()'s example: above SINGLE_TILE_MAX, so the multi-tile engine
+ENTRY_N = 65536  # pairs of entry()'s example: SINGLE_TILE_MAX, so K3 alone, on a cluster of CTAs
 DRYRUN_N_LOCAL = 1024  # pairs a rank in dryrun_multichip
 COLLECTIVE_TIMEOUT_S = 60  # the process group's: a collective that waits longer raises
 DRYRUN_TIMEOUT_S = 300  # the whole dry run: spawn, import torch, join the group, the cases
@@ -325,8 +327,9 @@ def entry(device=None):
     torch.Generator seeded with 0 on the CPU, so every device gets the same
     ones; the values are arange(65,536). `fn(keys, values)` is radix_sort
     with the backend resolved once, here ("cuda" unless
-    GLU_TPU_TORCH_BACKEND says otherwise): on the card, one digit_histograms
-    and four onesweep_pass launches."""
+    GLU_TPU_TORCH_BACKEND says otherwise): on the card, one sort_single_tile
+    launch (K3 on a thread-block cluster), as the JAX entry's sort is one
+    _single_block_sort."""
     device = default_device(device)
     gen = torch.Generator().manual_seed(0)
     keys = torch.randint(-(2**31), 2**31, (ENTRY_N,), dtype=torch.int32, generator=gen)
@@ -879,7 +882,10 @@ written anew from what it computes (csrc/radix_sort.cu):
         read once and written once (K1 + glue + K2 of the TPU engine, fused).
   An input of at most SINGLE_TILE_MAX elements instead takes
     K3 `sort_single_tile` -- one CTA runs every pass (the same passes of up
-        to 8 bits) in shared memory.
+        to 8 bits) in shared memory; above CTA_MAX elements a thread-block
+        cluster of MAX_CLUSTER CTAs does, each ranking a slice in its own
+        shared memory and copying each element to the CTA whose slice holds
+        its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
 in one call to the library.
@@ -910,13 +916,21 @@ BINS = 1 << MAX_FIELD_BITS
 MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
 
 # Kernel geometry, fixed at compile time in csrc/radix_sort.cu (kTile,
-# kSingleMax, kMaxStreams, kMaxBins); the library is checked against it when
-# loaded. The plain versions read TILE and SINGLE_TILE_MAX at call time, so
-# the CPU tests shrink them to reach many tiles, ragged tails and the
-# single-tile path at tiny n.
+# kSingleMax, kSliceMax, kMaxCluster, kMaxStreams, kMaxBins); the library
+# is checked against it when loaded. The plain versions read TILE,
+# SINGLE_TILE_MAX, SLICE_MAX and CTA_MAX at call time, so the CPU tests
+# shrink them to reach many tiles, ragged tails, the single-tile path and
+# K3's clusters at tiny n.
 TILE = 6144
-SINGLE_TILE_MAX = 24576
+SINGLE_TILE_MAX = 65536  # K3's limit: the JAX engine's single block, _FUSE_MAX_R x LANES
+SLICE_MAX = 16384        # the most elements a CTA of K3 holds (its shared memory)
+MAX_CLUSTER = 8          # the portable cluster size
 MAX_STREAMS = 8
+
+# The most elements K3 sorts on one CTA; above, on a cluster of MAX_CLUSTER
+# CTAs, which on the H100 is the faster from here on and 1.5x slower at
+# 256-4,096 elements (tools/k3_ctas.py; PERF.md).
+CTA_MAX = 6144
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -977,8 +991,8 @@ _lib = None  # the kernel library, its geometry checked, once loaded
 def _sort_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS,
-                       sort_bins=BINS)
+        _lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_slice_max=SLICE_MAX,
+                       sort_max_cluster=MAX_CLUSTER, sort_max_streams=MAX_STREAMS, sort_bins=BINS)
     return _lib
 
 
@@ -1130,12 +1144,50 @@ def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Ten
 
 
 def sort_single_tile_ref(keys: torch.Tensor, payloads, positions):
-    """Plain version of K3, pass by pass as the kernel runs them: one stable
-    sort on the digit of each group of _pass_groups, LSB-first."""
+    """Plain version of K3's function, pass by pass as the kernel runs them:
+    one stable sort on the digit of each group of _pass_groups, LSB-first."""
     order = torch.arange(keys.numel(), device=keys.device)
     for g in _pass_groups(positions):
         order = order[torch.sort(_digits(keys[order], g), stable=True).indices]
     return keys[order], [v[order] for v in payloads]
+
+
+def single_tile_ctas(n: int) -> int:
+    """K3's CTAs for n elements: one up to CTA_MAX, else MAX_CLUSTER."""
+    return 1 if n <= CTA_MAX else MAX_CLUSTER
+
+
+def single_tile_slice(n: int, ctas: int) -> int:
+    """The elements of each CTA's slice (the kernel's single_tile_slice): n
+    split evenly, rounded up to whole 16-byte vectors, the last CTA taking
+    what is left; n itself on one CTA."""
+    return n if ctas == 1 else -(-cdiv(n, ctas) // 4) * 4
+
+
+def sort_single_tile_cluster_ref(keys: torch.Tensor, payloads, positions, ctas: int):
+    """Plain version of K3's arithmetic on `ctas` CTAs, pass by pass: CTA r
+    holds the slots [r * slice, r * slice + slice) of the keys and of their
+    source index; (a) each CTA counts its digits; (b) a digit's start in
+    CTA r is its global start plus its count in the CTAs before r (one
+    exclusive cumsum in (digit, CTA) order, run_offsets); (c) each slot goes
+    to that start plus its rank among the CTA's equal digits in slot order
+    (the kernel's warp, row, lane). The payloads are gathered by the final
+    index."""
+    n = keys.numel()
+    slot = torch.arange(n, device=keys.device)
+    cta = slot // single_tile_slice(n, ctas)
+    index = slot  # the input position each slot holds
+    for g in _pass_groups(positions):
+        bins = 1 << len(g)
+        group = cta * bins + _digits(keys, g)  # (CTA, digit), CTA-major
+        counts = torch.bincount(group, minlength=ctas * bins)
+        starts = run_offsets(counts.view(ctas, bins)).view(-1)
+        in_group = torch.sort(group, stable=True).indices  # each group's slots in slot order
+        first = torch.cumsum(counts, 0) - counts  # where each group starts in in_group
+        rank = torch.empty_like(slot)
+        rank[in_group] = starts[group[in_group]] + slot - first[group[in_group]]
+        keys, index = keys.new_empty(n).index_put_((rank,), keys), index.new_empty(n).index_put_((rank,), index)
+    return keys, [v[index] for v in payloads]
 
 
 @functools.lru_cache(maxsize=64)
@@ -1146,25 +1198,26 @@ def _single_tile_plan(positions: tuple) -> tuple:
     return positions, _plan_args(_pass_groups(positions))
 
 
-def sort_single_tile(keys: torch.Tensor, payloads, positions):
+def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None = None):
     """K3 (replaces _pallas_sort.py::_single_block_sort): the whole LSD sort
     by the bits at `positions` (1-32 of them, in passes of up to 8 bits) of
-    at most SINGLE_TILE_MAX elements in one launch. Returns (keys, list of
-    payloads)."""
+    at most SINGLE_TILE_MAX elements in one launch, on single_tile_ctas(n)
+    CTAs (more than one: a thread-block cluster), or on `ctas` (1 to
+    MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
+    checks and timings give. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
     streams = _check_streams(keys, payloads)
     positions, plan = _single_tile_plan(tuple(positions))
-    check_argument(
-        keys.numel() <= SINGLE_TILE_MAX,
-        "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, keys.numel(),
-    )
+    n = keys.numel()
+    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
+    ctas = single_tile_ctas(n) if ctas is None else ctas
+    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER, SLICE_MAX,
+                   n, ctas)
     if not on_cuda(keys):
-        return sort_single_tile_ref(keys, list(payloads), positions)
+        return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
     outs = [torch.empty_like(s) for s in streams]
-    _launch(
-        "glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams),
-        keys.numel(), *plan,
-    )
+    _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan, ctas)
     sort_single_tile_launches += 1
     return outs[0], outs[1:]
 
@@ -1191,9 +1244,9 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     bit_positions (optional, LSB-first) restricts the sort to those key
     bits; None means bits 0..4*num_steps-1 (the reference contract).
 
-    Up to SINGLE_TILE_MAX elements take K3 alone; larger inputs take
-    onesweep_sort: one digit_histograms launch and one onesweep_pass per
-    group of 8 bits."""
+    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a
+    cluster of CTAs); larger inputs take onesweep_sort: one
+    digit_histograms launch and one onesweep_pass per group of 8 bits."""
     payloads = list(payloads)
     if bit_positions is None:
         positions = tuple(range(num_steps * FIELD_BITS))
@@ -2296,7 +2349,9 @@ an H100 (`_H100_MODEL`). It is read once per device and kept.
 
 The model's form is the engine's (ops/_cuda_sort.py): up to SINGLE_TILE_MAX
 pairs K3 alone, costing a fixed time (the wrapper's host time) plus n x
-passes x a rate; above it one histogram launch and one onesweep pass per 8
+passes x a rate, one pair of them for one CTA (up to CTA_MAX) and one for a
+cluster of CTAs (the cluster's barriers and its stores into the other CTAs'
+shared memory); above it one histogram launch and one onesweep pass per 8
 key bits, costing the larger of a fixed time plus a time a pass (the
 host's call and the launches' latency) and the card's (n x (the
 histogram's rate + passes x the pass's rate)). The
@@ -2345,41 +2400,41 @@ from . import backend as _backend
 _H100_MODEL = {
     "device": "NVIDIA H100 80GB HBM3",
     "power_limit_w": 700.0,
-    "k3_fixed_us": 70.389,
-    "k3_ns_per_key_pass": [0.64019, 0.75304, 0.8342],
-    "onesweep_fixed_us": 91.573,
-    "onesweep_pass_us": 14.347,
-    "onesweep_hist_ns_per_key": 0.0049942,
-    "onesweep_ns_per_key_pass": [0.0081999, 0.0095398, 0.014246],
+    "k3_fixed_us": 48.474,
+    "k3_ns_per_key_pass": [0.50313, 0.58125, 1.2703],
+    "k3_cluster_fixed_us": 69.493,
+    "k3_cluster_ns_per_key_pass": [0.15283, 0.16764, 0.23226],
+    "onesweep_fixed_us": 56.331,
+    "onesweep_pass_us": 17.077,
+    "onesweep_hist_ns_per_key": 0.0045567,
+    "onesweep_ns_per_key_pass": [0.0087576, 0.0098899, 0.014531],
     "torch_ns_per_key": {
         "keys": [
-            [10.0, 140.87], [12.0, 33.555], [14.0, 8.877], [14.584963, 6.0143], [14.585021, 5.7693],
-            [15.0, 4.3643], [16.0, 2.2803], [17.0, 1.1748], [18.0, 0.5542], [20.0, 0.17392],
-            [22.0, 0.097359], [24.0, 0.085152], [26.0, 0.091333], [28.0, 0.090183],
+            [10.0, 86.562], [12.0, 23.422], [14.0, 6.3594], [15.0, 3.3564], [16.0, 1.7114], [16.000022, 1.665],
+            [17.0, 0.83105], [18.0, 0.42383], [20.0, 0.14789], [22.0, 0.091736], [24.0, 0.085606], [26.0, 0.091563],
+            [28.0, 0.090247],
         ],
         "kv": [
-            [10.0, 149.34], [12.0, 35.117], [14.0, 10.191], [14.584963, 6.6211], [14.585021, 6.6],
-            [15.0, 4.7002], [16.0, 2.2251], [17.0, 1.1702], [18.0, 0.60461], [20.0, 0.18668],
-            [22.0, 0.11124], [24.0, 0.11022], [26.0, 0.12458], [28.0, 0.12604],
+            [10.0, 90.781], [12.0, 23.469], [14.0, 6.6348], [15.0, 3.4639], [16.0, 1.771], [16.000022, 1.873],
+            [17.0, 0.85913], [18.0, 0.4563], [20.0, 0.16495], [22.0, 0.10208], [24.0, 0.111], [26.0, 0.12458],
+            [28.0, 0.12617],
         ],
         "multi2": [
-            [10.0, 156.94], [12.0, 36.883], [14.0, 10.35], [14.584963, 6.6159], [14.585021, 7.0674],
-            [15.0, 4.4238], [16.0, 2.144], [17.0, 1.3838], [18.0, 0.66235], [20.0, 0.19849],
-            [22.0, 0.12606], [24.0, 0.13528], [26.0, 0.15871], [28.0, 0.16173],
+            [10.0, 119.41], [12.0, 28.344], [14.0, 7.2129], [15.0, 3.5117], [16.0, 1.8071], [16.000022, 1.8022],
+            [17.0, 0.98804], [18.0, 0.52197], [20.0, 0.18335], [22.0, 0.11366], [24.0, 0.13539], [26.0, 0.15837],
+            [28.0, 0.16177],
         ],
         "u64": [
-            [10.0, 296.66], [12.0, 66.445], [14.0, 17.455], [14.584963, 11.724], [14.585021, 12.97],
-            [15.0, 8.7285], [16.0, 5.0356], [17.0, 2.3149], [18.0, 1.2063], [20.0, 0.40475],
-            [22.0, 0.24788], [24.0, 0.23983], [26.0, 0.26591],
+            [10.0, 170.78], [12.0, 47.398], [14.0, 13.541], [15.0, 6.7842], [16.0, 3.4224], [16.000022, 3.6479],
+            [17.0, 1.812], [18.0, 0.91553], [20.0, 0.35721], [22.0, 0.22616], [24.0, 0.24047], [26.0, 0.26618],
         ],
         "segmented": [
-            [10.0, 277.37], [12.0, 62.313], [14.0, 19.811], [14.584963, 12.775], [14.585021, 13.945],
-            [15.0, 10.097], [16.0, 4.834], [17.0, 2.5552], [18.0, 1.2721], [20.0, 0.39587],
-            [22.0, 0.23611], [24.0, 0.18274], [26.0, 0.17993],
+            [10.0, 170.44], [12.0, 47.695], [14.0, 13.398], [15.0, 6.8437], [16.0, 3.585], [16.000022, 3.5278],
+            [17.0, 2.0225], [18.0, 0.93823], [20.0, 0.32623], [22.0, 0.2218], [24.0, 0.18338], [26.0, 0.17985],
         ],
     },
-    "torch_slope": {"keys": 0.0, "kv": 0.00073, "multi2": 0.00151, "u64": 0.01304, "segmented": 0.0},
-    "compact_us": 19.744,
+    "torch_slope": {"keys": 0.0, "kv": 0.000795, "multi2": 0.0017, "u64": 0.012855, "segmented": 0.0},
+    "compact_us": 0.608,
     "compact_ns_per_key": 0.0,
     "reduce_torch_max_n": 268435456,
 }
@@ -2408,6 +2463,8 @@ class _CostModel:
         self.model = model
         self.k3_fixed_us = float(model["k3_fixed_us"])
         self.k3_ns = tuple(model["k3_ns_per_key_pass"])
+        self.k3_cluster_fixed_us = float(model["k3_cluster_fixed_us"])
+        self.k3_cluster_ns = tuple(model["k3_cluster_ns_per_key_pass"])
         self.os_fixed_us = float(model["onesweep_fixed_us"])
         self.os_pass_us = float(model["onesweep_pass_us"])
         self.hist_ns = float(model["onesweep_hist_ns_per_key"])
@@ -2522,13 +2579,14 @@ def _torch_sort_est_s(m: _CostModel, n: int, num_streams: int, full_cover: bool 
 def _cuda_sort_est_s(m: _CostModel, n: int, num_streams: int, npasses: int) -> float:
     """Estimated seconds of the engine's sort of n keys with num_streams
     payloads in npasses passes of up to 8 bits: K3 alone up to
-    SINGLE_TILE_MAX (its host time, then its one launch), else one
-    histogram and npasses onesweep passes (the host's time or the card's,
-    whichever is longer)."""
+    SINGLE_TILE_MAX (its host time, then its one launch, on one CTA or a
+    cluster), else one histogram and npasses onesweep passes (the host's
+    time or the card's, whichever is longer)."""
     if npasses == 0 or n <= 1:
         return 0.0
     if n <= cs.SINGLE_TILE_MAX:
-        return (m.k3_fixed_us + n * npasses * _per_payloads(m.k3_ns, num_streams) * 1e-3) * 1e-6
+        fixed_us, rates = _k3_terms(m, n)
+        return (fixed_us + n * npasses * _per_payloads(rates, num_streams) * 1e-3) * 1e-6
     # the host launches each pass while the card runs the one before, so the
     # call takes the longer of the two (a sum overestimated 2^22 pairs by a
     # third on the H100, past torch's time, where the engine was faster)
@@ -2544,8 +2602,16 @@ def _chain_est_s(m: _CostModel, n: int, first: tuple, second: tuple) -> float:
     a, b = _cuda_sort_est_s(m, n, *first), _cuda_sort_est_s(m, n, *second)
     if a == 0.0 or b == 0.0:
         return a + b
-    fixed = m.k3_fixed_us if n <= cs.SINGLE_TILE_MAX else m.os_fixed_us
+    fixed = _k3_terms(m, n)[0] if n <= cs.SINGLE_TILE_MAX else m.os_fixed_us
     return a + b - min(fixed * 1e-6, b)
+
+
+def _k3_terms(m: _CostModel, n: int) -> tuple:
+    """K3's (fixed us, ns a key a pass by payloads) at n: one CTA's up to
+    CTA_MAX, the cluster's above."""
+    if n <= cs.CTA_MAX:
+        return m.k3_fixed_us, m.k3_ns
+    return m.k3_cluster_fixed_us, m.k3_cluster_ns
 
 
 def _npasses_of(positions: tuple) -> int:
@@ -2628,8 +2694,9 @@ def _reduce_backend(backend, x: torch.Tensor) -> str:
 # calibration
 # ---------------------------------------------------------------------------
 
-# sizes of the calibration ladder: around the K3 limit (24,576), then doublings
-LADDER = (1 << 10, 1 << 12, 1 << 14, 24576, 24577, 1 << 15, 1 << 16, 1 << 17, 1 << 18,
+# sizes of the calibration ladder: doublings, and around the K3 limit
+# (65,536); the engine's sorts are timed where K3 leaves one CTA (CTA_MAX) too
+LADDER = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 1 << 16, 65537, 1 << 17, 1 << 18,
           1 << 20, 1 << 22, 1 << 24, 1 << 26, 1 << 28)
 QUICK_MAX = 1 << 26  # --quick stops here
 TWO_WORD_MAX = 1 << 26  # the u64 and segmented forms stop here
@@ -2716,10 +2783,12 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     it to `out` (default: router_calibration_path()); returns the model.
 
     Both backends of each form are timed over `ladder` (default LADDER;
-    quick: up to 2^26; u64 and segmented up to 2^26), the engine also at 1
-    pass with 0, 1 and 2 payloads at SINGLE_TILE_MAX, at the sizes above it
-    up to 2^20 and at the largest up to 2^26, which fix its fixed times and
-    rates, and the reduce REDUCE_READINGS times. `timer(calls)` takes a dict of functions by point, (backend,
+    quick: up to 2^26; u64 and segmented up to 2^26), the engine also at
+    CTA_MAX / 2, CTA_MAX and SINGLE_TILE_MAX (so that K3 on one CTA has two
+    sizes whatever the ladder), and at 1 pass with 0, 1 and 2 payloads at
+    the sizes above SINGLE_TILE_MAX up to 2^20 and at the largest up to
+    2^26, which fix its fixed times and rates, and the reduce
+    REDUCE_READINGS times. `timer(calls)` takes a dict of functions by point, (backend,
     form, n, passes), and returns the seconds of one call of each; the calls
     of every size up to HOST_BOUND_MAX are timed together, those of each
     larger size together. The default times on the card as
@@ -2738,7 +2807,7 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     sizes = sorted(set(LADDER if ladder is None else ladder))
     if quick:
         sizes = [n for n in sizes if n <= QUICK_MAX]
-    k3_n = cs.SINGLE_TILE_MAX
+    k3_n, cta_n = cs.SINGLE_TILE_MAX, min(cs.CTA_MAX, cs.SINGLE_TILE_MAX)
     above = [n for n in sizes if k3_n < n <= TWO_WORD_MAX]
     check_argument(len(above) >= 2, "the ladder needs two sizes from SINGLE_TILE_MAX (%d) to 2^26", k3_n)
     n_big = above[-1]
@@ -2775,8 +2844,8 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
         return lambda: rs._sort_two_words(major, minor, major_pos, full, [iota[:n]], b)
 
     # the calls of each size, with the engine's 1-pass sorts beside its full
-    # ones where the fit compares them: at K3's limit, at the sizes where
-    # the multi-tile path is bound by its fixed time, and at n_big. Every
+    # ones where the fit compares them: at the sizes where the multi-tile
+    # path is bound by its fixed time, and at n_big. Every
     # size up to HOST_BOUND_MAX is timed in one group, so that each point's
     # median is taken over the same moments of the host, whose speed moves
     # by up to 2x from one second to the next on the H100's machines:
@@ -2784,9 +2853,9 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     # size that met a fast moment would be set against the engine's fixed
     # time, a median pooled over all the sizes. The larger sizes, a call of
     # which is up to 1,000x longer, a size at a time.
-    one_pass_sizes = {k3_n, n_big} | {n for n in sizes if k3_n < n <= HOST_BOUND_MAX}
+    one_pass_sizes = {n_big} | {n for n in sizes if k3_n < n <= HOST_BOUND_MAX}
     host_bound = {}
-    for n in sorted(set(sizes) | {k3_n}):
+    for n in sorted(set(sizes) | {cta_n // 2, cta_n, k3_n}):
         calls = {}
         for form in ("keys", "kv", "multi2"):
             if n in sizes:
@@ -2808,7 +2877,7 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
 
     model = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
              "power_limit_w": _power_limit_w(device) if device.type == "cuda" else None}
-    model.update(_fit_model(measured, sizes, k3_n))
+    model.update(_fit_model(measured, sizes, k3_n, cta_n))
     # reduce: K5 and torch's, timed together REDUCE_READINGS times a size,
     # each reading of the two in the same rounds (the host's drift, which
     # moves these times by 2x from one reading to the next on the H100,
@@ -2837,13 +2906,19 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     return model
 
 
-def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
+def _fit_model(measured: dict, sizes: list, k3_n: int, cta_n: int) -> dict:
     """The model's rates from calibrate's measurements, a dict of seconds by
     (backend, form, n, passes)."""
     n_big = max(n for n in sizes if k3_n < n <= TWO_WORD_MAX)
-    # the engine. K3: its per-key rate by payloads from 1 and 4 passes at its
-    # limit, and its fixed time, the median over its points of what the rate
-    # leaves. The multi-tile path: the card's rates by payloads from 1 and 4
+    # the engine. K3 on one CTA (up to CTA_MAX) and on a cluster (above):
+    # each one's per-key rate a pass by payloads from its full sorts at its
+    # smallest and largest sizes, and its fixed time, the median over its
+    # points of what the rate leaves (a cluster without two sizes of its
+    # own, as where the two limits meet, takes one CTA's terms). Not from 1 and 4
+    # passes at one size: each pass also has a fixed part (its scans and, in
+    # a cluster, its barriers), which that rate counted as keys and so
+    # overestimated the largest sorts (on the H100 by a tenth at 65,536
+    # pairs). The multi-tile path: the card's rates by payloads from 1 and 4
     # passes at n_big; the fixed times from the medians of the 1-pass and of
     # the 4-pass sorts where the card's estimate is under half the time:
     # fixed + 1 pass and fixed + 4 passes (the host's call, the launches'
@@ -2858,27 +2933,41 @@ def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
 
     extra = cs.MAX_PASSES - 1
     forms = ("keys", "kv", "multi2")
-    k3_ns, os_ns, hist = [], [], []
+
+    def rate(form, n):  # ns a key a pass of the engine's sort of n keys, from 1 and 4 passes
+        t1, t4 = measured[("cuda", form, n, 1)], measured[("cuda", form, n, cs.MAX_PASSES)]
+        return max((t4 - t1) / (extra * n), 0.0)
+
+    def k3_terms(lo_n, hi_n):
+        """K3's (fixed s, s a key a pass by payloads) from its points in
+        (lo_n, hi_n], or None where they are of one size."""
+        points = {(form, n, p): t for (b, form, n, p), t in measured.items()
+                  if b == "cuda" and form in forms and lo_n < n <= hi_n}
+        lo, hi = min(n for _, n, _ in points), max(n for _, n, _ in points)
+        if lo == hi:
+            return None
+        full = {(form, n): t for (form, n, p), t in points.items() if p == cs.MAX_PASSES}
+        rates = [max((full[(form, hi)] - full[(form, lo)]) / (cs.MAX_PASSES * (hi - lo)), 0.0) for form in forms]
+        return median([t - n * p * rates[forms.index(form)] for (form, n, p), t in points.items()]), rates
+
+    os_ns, hist = [], []
     for form in forms:
-        t1, t4 = measured[("cuda", form, k3_n, 1)], measured[("cuda", form, k3_n, cs.MAX_PASSES)]
-        k3_ns.append(max((t4 - t1) / (extra * k3_n), 0.0))
-        b1, b4 = measured[("cuda", form, n_big, 1)], measured[("cuda", form, n_big, cs.MAX_PASSES)]
-        os_ns.append(max((b4 - b1) / (extra * n_big), 0.0))
-        hist.append(b1 / n_big - os_ns[-1])
+        os_ns.append(rate(form, n_big))
+        hist.append(measured[("cuda", form, n_big, 1)] / n_big - os_ns[-1])
     hist = max(median(hist), 0.0)
-    k3_left, host = [], {1: [], cs.MAX_PASSES: []}
+    host = {1: [], cs.MAX_PASSES: []}
     for (b, form, n, p), t in measured.items():
-        if b == "cuda" and form in forms:
-            s = forms.index(form)
-            if n <= k3_n:
-                k3_left.append(t - n * p * k3_ns[s])
-            elif n * (hist + p * os_ns[s]) < t / 2:
-                host[p].append(t)
+        if b == "cuda" and form in forms and n > k3_n and n * (hist + p * os_ns[forms.index(form)]) < t / 2:
+            host[p].append(t)
     one, full = median(host[1]), median(host[cs.MAX_PASSES])
     per_pass = max((full - one) / extra, 0.0)
+    k3_fixed, k3_ns = k3_terms(0, cta_n)
+    k3c_fixed, k3c_ns = (k3_terms(cta_n, k3_n) if cta_n < k3_n else None) or (k3_fixed, k3_ns)
     model = {
-        "k3_fixed_us": _sig(max(median(k3_left), 0.0) * 1e6),
+        "k3_fixed_us": _sig(max(k3_fixed, 0.0) * 1e6),
         "k3_ns_per_key_pass": [_sig(r * 1e9) for r in k3_ns],
+        "k3_cluster_fixed_us": _sig(max(k3c_fixed, 0.0) * 1e6),
+        "k3_cluster_ns_per_key_pass": [_sig(r * 1e9) for r in k3c_ns],
         "onesweep_fixed_us": _sig(max(one - per_pass, 0.0) * 1e6),
         "onesweep_pass_us": _sig(per_pass * 1e6),
         "onesweep_hist_ns_per_key": _sig(hist * 1e9),
@@ -4691,8 +4780,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // each tile is ranked, finds its place through a decoupled look-back over
 // the tiles before it, and writes every stream to its final place, so each
 // word is read once and written once per pass (Adinets & Merrill,
-// "Onesweep", 2022). An input that fits one CTA's shared memory takes
-// sort_single_tile (K3), which runs every pass in one launch.
+// "Onesweep", 2022). An input of up to 65,536 elements takes
+// sort_single_tile (K3), which runs every pass in one launch: one CTA, or a
+// thread-block cluster whose CTAs share their shared memory.
 //
 // Bit positions (LSB-first) and stream pointers travel by value, so one
 // compiled kernel serves every pass and every payload count. Words are
@@ -4706,6 +4796,7 @@ __device__ __forceinline__ void cp_async_wait() {
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -4713,6 +4804,7 @@ __device__ __forceinline__ void cp_async_wait() {
 namespace {
 
 using namespace glu;
+namespace cg = cooperative_groups;
 
 constexpr int kMaxStreams = 8;       // keys + up to 7 payload streams
 constexpr int kMaxPassBits = 8;      // a onesweep pass takes 1-8 key bits
@@ -4733,17 +4825,23 @@ static_assert(kTileThreads >= kMaxBins, "one thread per digit in the look-back")
 
 constexpr int kHistThreads = 1024;
 
-// K3: one CTA of 1024 threads, up to 24 items a thread. The shared memory
-// holds the keys once and their u16 source index twice (8 bytes an element)
-// and every warp's 256 running counts: 229,376 bytes at 24,576 elements,
-// which is where the 232,448 bytes a block may take end.
+// K3: CTAs of 1024 threads, each holding a slice of at most kSliceMax
+// elements, 16 items a thread. A CTA of a cluster holds its slice's keys
+// and their u16 source index twice each (12 bytes an element) and every
+// warp's 256 running counts: 229,376 bytes, where the 232,448 bytes a block
+// may take end. A cluster has up to kMaxCluster CTAs (the portable cluster
+// size), so K3 takes up to kSingleMax elements: the JAX engine's
+// single-block limit, _FUSE_MAX_R x LANES.
 constexpr int kSingleThreads = 1024;
-constexpr int kSingleItems = 24;
-constexpr int kSingleMax = kSingleThreads * kSingleItems;  // 24576: K3's limit
+constexpr int kSliceMax = 16384;
+constexpr int kMaxCluster = 8;
+constexpr int kSingleMax = 65536;  // K3's limit
 constexpr int kSingleWarps = kSingleThreads / 32;
+constexpr int kSingleItems = kSliceMax / kSingleThreads;
 constexpr int kRankRows = 2;  // rows of 32 items ranked at once
 static_assert(kSingleThreads >= kMaxBins, "one thread per digit in the scan");
-static_assert(kSingleItems % kRankRows == 0, "whole chunks of rows");
+static_assert(kSliceMax % (kSingleThreads * kRankRows) == 0, "a slice in whole chunks of rows");
+static_assert(kSingleMax <= kMaxCluster * kSliceMax, "K3's limit fits a cluster");
 static_assert(kSingleMax <= 65536, "u16 source index");
 
 struct Streams {
@@ -5088,50 +5186,98 @@ __device__ __forceinline__ void load_words(const uint32_t* in, uint32_t* buf, in
 
 // K3. Replaces glu_tpu/ops/_pallas_sort.py::_single_block_sort.
 //
-// One CTA sorts all of an input of at most kSingleMax elements, one stable
-// pass per Digit of plan (1-4 passes of 1-8 key bits: a 32-bit sort is 4
-// passes). The keys and a u16 source index stay in shared memory through
-// every pass, and the payload streams are gathered by that index once at the
-// end, so device memory sees one read and one write of each word and the
-// shared memory need does not depend on the payload count.
+// One launch sorts all of an input of at most kSingleMax elements, one
+// stable pass per Digit of plan (1-4 passes of 1-8 key bits: a 32-bit sort
+// is 4 passes). The keys and a u16 source index stay in shared memory
+// through every pass, and the payload streams are gathered by that index
+// once at the end, so device memory sees one read and one write of each word
+// and the shared memory need does not depend on the payload count.
 //
-// What bounds it on this card is not device bytes (16,384 pairs move 256 KB,
-// under a microsecond at 3.35 TB/s) but the one SM it runs on: the latency
-// of each pass's chain of steps, most of it in the ranking of step (c),
-// where each row of 32 waits on the leaders' adds of the row before it
-// (after nine ballots), and its shared memory, which sets kSingleMax. So
-// the design shortens the chain: passes of 8 bits (4 for 32 bits, not 8 of
-// 4 bits), the onesweep kernel's ballot ranker (rank_rows: no per-thread
-// counter table to scan), and 32 warps, each ranking only its own rows, so
-// that a warp's chain is about n / 1024 rows; a small sort takes few warps.
-// A gather of 4-byte words from device memory costs one SM a sector a word,
-// so each payload stream is copied whole into the keys' buffer once the keys
-// are written out, gathered there and written in order. Each pass:
-//  (a) every warp takes the contiguous run of items first + 32 j + lane,
-//      holds its keys in registers and counts their digits into its own row
-//      of warp_runs with shared atomics;
+// What bounds it on this card is not device bytes (65,536 pairs move 1 MB,
+// 0.3 microseconds at 3.35 TB/s) but latency: each pass's chain of steps,
+// most of it in the ranking of step (c), where each row of 32 waits on the
+// leaders' adds of the row before it (after nine ballots). So the design
+// shortens the chain: passes of 8 bits (4 for 32 bits, not 8 of 4 bits),
+// the onesweep kernel's ballot ranker (rank_rows: no per-thread counter
+// table to scan), and 32 warps a CTA, each ranking only its own rows, so
+// that a warp's chain is about slice / 1024 rows; a small sort takes few
+// warps. A small input runs on one CTA; a larger one on a cluster of CTAs
+// (CLUSTER; faster on the H100 from about 6,000 elements, and the only way
+// past one SM's shared memory), CTA r holding the contiguous slice
+// [r * slice, r * slice + slice) of the input and of the output, which
+// shortens each CTA's chain as well. The cluster's CTAs exchange their
+// elements through distributed shared memory, where a store costs far more
+// than in a CTA's own, and most when a warp's 32 stores fall apart: so each
+// CTA ranks into its own shared memory as one CTA does, then copies its
+// elements out in rank order, where a warp's stores fall on few runs of
+// consecutive places in one other CTA. A gather of 4-byte words from device
+// memory costs one SM a sector a word, so each payload stream is copied
+// whole into the keys' buffers once the keys are written out, gathered
+// there and written in order. Each pass:
+//  (a) every warp takes the contiguous run of items first + 32 j + lane of
+//      its CTA's slice, holds its keys in registers and counts their digits
+//      into its own row of warp_runs with shared atomics;
 //  (b) a scan over (digit, warp), digit-major, gives each warp its first
-//      rank of each digit;
+//      rank of each digit in its CTA; in a cluster each CTA also publishes
+//      its count of each digit in cta_counts;
 //  (c) the warp ranks its rows in order, kRankRows at a time, and writes
-//      each key (from its registers) and its source index (from the other
-//      index buffer) to its rank. The order is (digit, warp, row, lane),
-//      input order within a digit, so the pass is stable. Every key was read
-//      in (a), so the keys are rewritten in place; the index is read here,
-//      so it has two buffers. Each warp then zeroes its row of warp_runs.
+//      each key (from its registers) and its source index (from the index
+//      buffer it read) to its rank, in the CTA's own staged buffers. The
+//      order is (digit, warp, row, lane), input order within a digit, so
+//      the pass is stable. One CTA alone rewrites its keys in place (every
+//      key was read in (a)) and alternates its two index buffers: that is
+//      the pass. In a cluster:
+//  (d) after a cluster barrier (every CTA's counts published and its
+//      elements staged, so every CTA's buffers 0 are free), each CTA reads
+//      every CTA's counts: a digit's count over the cluster, and in the
+//      CTAs before it; a scan over the digits gives each digit's start in
+//      the cluster's order (digit, CTA, warp, row, lane), still stable, and
+//      so the shift from a digit's rank in the CTA to its rank in the
+//      cluster;
+//  (e) each CTA copies its staged keys and indices, in rank order, to their
+//      ranks: into buffers 0 of the CTA whose slice holds each, and a
+//      cluster barrier ends the pass.
+// The index is the element's position in the whole input (a u16: at most
+// 65,536 elements). A cluster's last barrier comes after its last read of
+// another CTA's shared memory, so that no CTA exits while it is read.
+template <bool CLUSTER>
 __global__ void __launch_bounds__(kSingleThreads)
-    sort_single_tile_kernel(Streams s, int n, PassDigits plan) {
+    sort_single_tile_kernel(Streams s, int n, int slice, PassDigits plan) {
+  constexpr int kKeyBuffers = CLUSTER ? 2 : 1;
   extern __shared__ __align__(16) uint32_t smem_single[];
-  uint32_t* keys = smem_single;                                       // [kSingleMax]
-  uint16_t* index = reinterpret_cast<uint16_t*>(keys + kSingleMax);   // [2][kSingleMax]
-  int* warp_runs = reinterpret_cast<int*>(index + 2 * kSingleMax);    // [kSingleWarps][kMaxBins]
+  uint32_t* keys = smem_single;                                                   // [kKeyBuffers][kSliceMax]
+  uint16_t* index = reinterpret_cast<uint16_t*>(keys + kKeyBuffers * kSliceMax);  // [2][kSliceMax]
+  int* warp_runs = reinterpret_cast<int*>(index + 2 * kSliceMax);                 // [kSingleWarps][kMaxBins]
   __shared__ const uint32_t* s_in[kMaxStreams];
   __shared__ uint32_t* s_out[kMaxStreams];
   __shared__ Digit s_digit[kMaxPasses];
   __shared__ int warp_sums[kSingleWarps + 1];
+  // a cluster's: this CTA's count of each digit in the pass, the shift from
+  // a digit's rank in the CTA to its rank in the cluster, and every CTA's
+  // buffers 0 and counts as this CTA addresses them
+  __shared__ int cta_counts[kMaxBins];
+  __shared__ int shift[kMaxBins];
+  __shared__ uint32_t* s_keys[kMaxCluster];
+  __shared__ uint16_t* s_index[kMaxCluster];
+  __shared__ const int* s_counts[kMaxCluster];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
+  int cta = 0, ctas = 1;
+  if constexpr (CLUSTER) {
+    cta = static_cast<int>(cg::this_cluster().block_rank());
+    ctas = static_cast<int>(cg::this_cluster().num_blocks());
+  }
+  auto cluster_sync = [] {
+    if constexpr (CLUSTER) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  };
+  const int lo = cta * slice;                  // this CTA's slice of the input and the output
+  const int mine = max(0, min(slice, n - lo));  // its elements: the last CTA's may be fewer, or none
   if (t == 0) {  // the launch arguments indexed at run time, with static indices
 #pragma unroll
     for (int j = 0; j < kMaxStreams; ++j) {
@@ -5140,28 +5286,36 @@ __global__ void __launch_bounds__(kSingleThreads)
     }
 #pragma unroll
     for (int p = 0; p < kMaxPasses; ++p) s_digit[p] = plan.pass[p];
+    if constexpr (CLUSTER) {
+      for (int c = 0; c < ctas; ++c) {
+        s_keys[c] = cg::this_cluster().map_shared_rank(keys, c);
+        s_index[c] = cg::this_cluster().map_shared_rank(index, c);
+        s_counts[c] = cg::this_cluster().map_shared_rank(cta_counts, c);
+      }
+    }
   }
   for (int i = t; i < kSingleWarps * kMaxBins; i += kSingleThreads) warp_runs[i] = 0;
-  load_words(s.in[0], keys, n);
-  for (int i = t; i < n; i += kSingleThreads) index[i] = static_cast<uint16_t>(i);
+  load_words(s.in[0] + lo, keys, mine);
+  for (int i = t; i < mine; i += kSingleThreads) index[i] = static_cast<uint16_t>(lo + i);
   __syncthreads();
 
   // rows of 32 items per warp, in whole chunks of kRankRows, so that no warp
   // ranks an empty row and a small sort takes few warps
-  const int rows = (n + kSingleThreads * kRankRows - 1) / (kSingleThreads * kRankRows) * kRankRows;
+  const int rows = (slice + kSingleThreads * kRankRows - 1) / (kSingleThreads * kRankRows) * kRankRows;
   const int first = warp * rows * 32;
   int* runs = warp_runs + warp * kMaxBins;
+  uint32_t* staged = keys + (CLUSTER ? kSliceMax : 0);  // the keys in rank order in the CTA (one CTA: in place)
   for (int p = 0; p < plan.count; ++p) {
     const Digit digit = s_digit[p];
-    const uint16_t* src = index + (p & 1) * kSingleMax;
-    uint16_t* dst = index + ((p + 1) & 1) * kSingleMax;
+    const uint16_t* src = index + (CLUSTER ? 0 : (p & 1) * kSliceMax);
+    uint16_t* dst = index + (CLUSTER ? kSliceMax : ((p + 1) & 1) * kSliceMax);
     // (a)
     uint32_t key[kSingleItems];
 #pragma unroll
     for (int j = 0; j < kSingleItems; ++j) {
       const int i = first + 32 * j + lane;
       key[j] = 0;
-      if (j < rows && i < n) {
+      if (j < rows && i < mine) {
         key[j] = keys[i];
         atomicAdd(&runs[digit.of(key[j])], 1);
       }
@@ -5173,10 +5327,12 @@ __global__ void __launch_bounds__(kSingleThreads)
     if (owns_digit) {
 #pragma unroll 8
       for (int w = 0; w < kSingleWarps; ++w) count += warp_runs[w * kMaxBins + t];
+      if constexpr (CLUSTER) cta_counts[t] = count;
     }
     int total;
-    int run = block_exclusive_sum<kSingleThreads>(count, warp_sums, &total);
+    const int start = block_exclusive_sum<kSingleThreads>(count, warp_sums, &total);
     if (owns_digit) {
+      int run = start;
 #pragma unroll 8
       for (int w = 0; w < kSingleWarps; ++w) {
         const int c = warp_runs[w * kMaxBins + t];
@@ -5193,33 +5349,70 @@ __global__ void __launch_bounds__(kSingleThreads)
 #pragma unroll
         for (int j = 0; j < kRankRows; ++j) {
           const int i = first + 32 * (c + j) + lane;
-          dig[j] = c + j < rows && i < n ? digit.of(key[c + j]) : kMaxBins;
+          dig[j] = c + j < rows && i < mine ? digit.of(key[c + j]) : kMaxBins;
         }
         rank_rows(dig, digit.nbits, runs, [&](int j, int rank) {
-          keys[rank] = key[c + j];
+          staged[rank] = key[c + j];
           dst[rank] = src[first + 32 * (c + j) + lane];
         });
       }
     }
     for (int d = lane; d < kMaxBins; d += 32) runs[d] = 0;  // after rank_rows' last __syncwarp
-    __syncthreads();
+    if constexpr (CLUSTER) {
+      cg::this_cluster().sync();
+      // (d) the counts of every CTA, their loads all in flight at once
+      int counts[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) counts[c] = owns_digit && c < ctas ? s_counts[c][t] : 0;
+      int all = 0, before = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        all += counts[c];
+        before += c < cta ? counts[c] : 0;
+      }
+      const int cluster_start = block_exclusive_sum<kSingleThreads>(all, warp_sums, &total);
+      if (owns_digit) shift[t] = cluster_start + before - start;
+      __syncthreads();
+      // (e)
+      for (int q = t; q < mine; q += kSingleThreads) {
+        const uint32_t k = staged[q];
+        const int rank = q + shift[digit.of(k)];
+        const int owner = rank / slice;
+        const int at = rank - owner * slice;
+        s_keys[owner][at] = k;
+        s_index[owner][at] = dst[q];
+      }
+    }
+    cluster_sync();
   }
 
-  const uint16_t* order = index + (plan.count & 1) * kSingleMax;
-  for (int i = t; i < n; i += kSingleThreads) s_out[0][i] = keys[i];
-  for (int st = 1; st < s.count; ++st) {  // each payload through the keys' buffer
-    __syncthreads();
-    load_words(s_in[st], keys, n);
-    __syncthreads();
-    uint32_t* out = s_out[st];
-    for (int i = t; i < n; i += kSingleThreads) out[i] = keys[order[i]];
+  // the output slice's keys and source indices: buffers 0 in a cluster
+  const uint16_t* order = index + (CLUSTER ? 0 : (plan.count & 1) * kSliceMax);
+  for (int i = t; i < mine; i += kSingleThreads) s_out[0][lo + i] = keys[i];
+  for (int st = 1; st < s.count; ++st) {  // each payload through the keys' buffers 0
+    cluster_sync();  // every read of the buffers (this CTA's, and the gathers of the stream before) done
+    load_words(s_in[st] + lo, keys, mine);
+    cluster_sync();
+    uint32_t* out = s_out[st] + lo;
+    for (int i = t; i < mine; i += kSingleThreads) {
+      const int from = order[i];
+      if constexpr (CLUSTER) {
+        const int owner = from / slice;
+        out[i] = s_keys[owner][from - owner * slice];
+      } else {
+        out[i] = keys[from];
+      }
+    }
+  }
+  if constexpr (CLUSTER) {
+    if (s.count > 1) cg::this_cluster().sync();  // the gathers' reads of the other CTAs
   }
 }
 
 constexpr int onesweep_smem(int nstreams) {
   return nstreams * kTile * 4 + kTile * 2 + kTileWarps * kMaxBins * 4;
 }
-constexpr int kSingleTileSmem = kSingleMax * 4 + 2 * kSingleMax * 2 + kSingleWarps * kMaxBins * 4;
+constexpr int kSingleTileSmem = 2 * kSliceMax * 4 + 2 * kSliceMax * 2 + kSingleWarps * kMaxBins * 4;  // both forms
 
 bool fill_streams(Streams* s, const void* const* in, void* const* out, int count) {
   if (in == nullptr || out == nullptr || count < 1 || count > kMaxStreams) return false;
@@ -5273,10 +5466,35 @@ cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long 
   return err;
 }
 
+template <bool CLUSTER>
 cudaError_t allow_single_tile_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem(reinterpret_cast<const void*>(sort_single_tile_kernel), kSingleTileSmem, &done);
+  return allow_smem(reinterpret_cast<const void*>(sort_single_tile_kernel<CLUSTER>), kSingleTileSmem, &done);
 }
+
+// K3's launch on a cluster of ctas CTAs (2..kMaxCluster) in one row: the
+// configuration of the launch and of cudaOccupancyMaxActiveClusters.
+struct ClusterLaunch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attribute[1];
+
+  ClusterLaunch(int ctas, cudaStream_t stream) {
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(kSingleThreads);
+    config.dynamicSmemBytes = kSingleTileSmem;
+    config.stream = stream;
+    attribute[0].id = cudaLaunchAttributeClusterDimension;
+    attribute[0].val.clusterDim.x = ctas;
+    attribute[0].val.clusterDim.y = 1;
+    attribute[0].val.clusterDim.z = 1;
+    config.attrs = attribute;
+    config.numAttrs = 1;
+  }
+};
+
+// The slice of each CTA of K3 on ctas CTAs: n split evenly, rounded up to
+// whole 16-byte vectors (the last CTA takes what is left); n itself on one.
+int single_tile_slice(int n, int ctas) { return ctas == 1 ? n : ((n + ctas - 1) / ctas + 3) / 4 * 4; }
 
 // The most any onesweep launch takes (kMaxStreams streams); a launch with
 // fewer streams asks for less.
@@ -5329,6 +5547,8 @@ extern "C" {
 
 int glu_sort_tile() { return kTile; }
 int glu_sort_single_tile_max() { return kSingleMax; }
+int glu_sort_slice_max() { return kSliceMax; }
+int glu_sort_max_cluster() { return kMaxCluster; }
 int glu_sort_max_streams() { return kMaxStreams; }
 int glu_sort_bins() { return kMaxBins; }
 const char* glu_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
@@ -5410,19 +5630,45 @@ int glu_onesweep_sort(const void* const* in, void* const* out, void* const* tmp,
   return err;
 }
 
-// bits, nbits, npasses: the passes, as fill_plan takes them.
+// K3 on ctas CTAs (1..kMaxCluster; each CTA's slice, single_tile_slice(n,
+// ctas), at most kSliceMax): one CTA, or a cluster of ctas CTAs. bits,
+// nbits, npasses: the passes, as fill_plan takes them.
 int glu_sort_single_tile(const void* const* in, void* const* out, int nstreams, int n,
-                         const int* bits, const int* nbits, int npasses, void* stream) {
+                         const int* bits, const int* nbits, int npasses, int ctas, void* stream) {
   Streams s;
   PassDigits plan;
-  if (n < 1 || n > kSingleMax || !fill_streams(&s, in, out, nstreams) ||
-      !fill_plan(&plan, bits, nbits, npasses))
+  if (n < 1 || n > kSingleMax || ctas < 1 || ctas > kMaxCluster || single_tile_slice(n, ctas) > kSliceMax ||
+      !fill_streams(&s, in, out, nstreams) || !fill_plan(&plan, bits, nbits, npasses))
     return cudaErrorInvalidValue;
-  const cudaError_t err = allow_single_tile_smem();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas == 1) {
+    const cudaError_t err = allow_single_tile_smem<false>();
+    if (err != cudaSuccess) return err;
+    sort_single_tile_kernel<false><<<1, kSingleThreads, kSingleTileSmem, st>>>(s, n, n, plan);
+    return cudaGetLastError();
+  }
+  cudaError_t err = allow_single_tile_smem<true>();
   if (err != cudaSuccess) return err;
-  sort_single_tile_kernel<<<1, kSingleThreads, kSingleTileSmem,
-                            static_cast<cudaStream_t>(stream)>>>(s, n, plan);
-  return cudaGetLastError();
+  ClusterLaunch launch(ctas, st);
+  err = cudaLaunchKernelEx(&launch.config, sort_single_tile_kernel<true>, s, n, single_tile_slice(n, ctas), plan);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// How many clusters of ctas CTAs of K3 the device can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: such a launch is refused), or minus
+// the CUDA error that stopped the query.
+int glu_sort_single_tile_clusters(int ctas) {
+  if (ctas < 2 || ctas > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_single_tile_smem<true>();
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    ClusterLaunch launch(ctas, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(sort_single_tile_kernel<true>),
+                                         &launch.config);
+  }
+  cudaGetLastError();
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
 }  // extern "C"

@@ -136,8 +136,8 @@ def load_library() -> ctypes.CDLL:
 def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_max_streams", "glu_sort_bins",
-                 "glu_fold_tile", "glu_scan_tile"):
+    for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_slice_max",
+                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -150,13 +150,15 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_onesweep_sort_work_words.argtypes = [c_int, c_int]
     # (in, out and tmp pointers, stream count, n, bit positions, bits per pass, passes, work, stream)
     lib.glu_onesweep_sort.argtypes = [ptr, ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr, ptr]
-    # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, stream)
-    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr]
+    # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, CTAs, stream)
+    lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, c_int, ptr]
+    # (CTAs) -> clusters of K3 the device holds at once
+    lib.glu_sort_single_tile_clusters.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_reduce", "glu_scan_pass"):
+                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass"):
         getattr(lib, name).restype = c_int
     return lib

@@ -7,8 +7,9 @@
 // each tile is ranked, finds its place through a decoupled look-back over
 // the tiles before it, and writes every stream to its final place, so each
 // word is read once and written once per pass (Adinets & Merrill,
-// "Onesweep", 2022). An input that fits one CTA's shared memory takes
-// sort_single_tile (K3), which runs every pass in one launch.
+// "Onesweep", 2022). An input of up to 65,536 elements takes
+// sort_single_tile (K3), which runs every pass in one launch: one CTA, or a
+// thread-block cluster whose CTAs share their shared memory.
 //
 // Bit positions (LSB-first) and stream pointers travel by value, so one
 // compiled kernel serves every pass and every payload count. Words are
@@ -22,6 +23,7 @@
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -29,6 +31,7 @@
 namespace {
 
 using namespace glu;
+namespace cg = cooperative_groups;
 
 constexpr int kMaxStreams = 8;       // keys + up to 7 payload streams
 constexpr int kMaxPassBits = 8;      // a onesweep pass takes 1-8 key bits
@@ -49,17 +52,23 @@ static_assert(kTileThreads >= kMaxBins, "one thread per digit in the look-back")
 
 constexpr int kHistThreads = 1024;
 
-// K3: one CTA of 1024 threads, up to 24 items a thread. The shared memory
-// holds the keys once and their u16 source index twice (8 bytes an element)
-// and every warp's 256 running counts: 229,376 bytes at 24,576 elements,
-// which is where the 232,448 bytes a block may take end.
+// K3: CTAs of 1024 threads, each holding a slice of at most kSliceMax
+// elements, 16 items a thread. A CTA of a cluster holds its slice's keys
+// and their u16 source index twice each (12 bytes an element) and every
+// warp's 256 running counts: 229,376 bytes, where the 232,448 bytes a block
+// may take end. A cluster has up to kMaxCluster CTAs (the portable cluster
+// size), so K3 takes up to kSingleMax elements: the JAX engine's
+// single-block limit, _FUSE_MAX_R x LANES.
 constexpr int kSingleThreads = 1024;
-constexpr int kSingleItems = 24;
-constexpr int kSingleMax = kSingleThreads * kSingleItems;  // 24576: K3's limit
+constexpr int kSliceMax = 16384;
+constexpr int kMaxCluster = 8;
+constexpr int kSingleMax = 65536;  // K3's limit
 constexpr int kSingleWarps = kSingleThreads / 32;
+constexpr int kSingleItems = kSliceMax / kSingleThreads;
 constexpr int kRankRows = 2;  // rows of 32 items ranked at once
 static_assert(kSingleThreads >= kMaxBins, "one thread per digit in the scan");
-static_assert(kSingleItems % kRankRows == 0, "whole chunks of rows");
+static_assert(kSliceMax % (kSingleThreads * kRankRows) == 0, "a slice in whole chunks of rows");
+static_assert(kSingleMax <= kMaxCluster * kSliceMax, "K3's limit fits a cluster");
 static_assert(kSingleMax <= 65536, "u16 source index");
 
 struct Streams {
@@ -404,50 +413,98 @@ __device__ __forceinline__ void load_words(const uint32_t* in, uint32_t* buf, in
 
 // K3. Replaces glu_tpu/ops/_pallas_sort.py::_single_block_sort.
 //
-// One CTA sorts all of an input of at most kSingleMax elements, one stable
-// pass per Digit of plan (1-4 passes of 1-8 key bits: a 32-bit sort is 4
-// passes). The keys and a u16 source index stay in shared memory through
-// every pass, and the payload streams are gathered by that index once at the
-// end, so device memory sees one read and one write of each word and the
-// shared memory need does not depend on the payload count.
+// One launch sorts all of an input of at most kSingleMax elements, one
+// stable pass per Digit of plan (1-4 passes of 1-8 key bits: a 32-bit sort
+// is 4 passes). The keys and a u16 source index stay in shared memory
+// through every pass, and the payload streams are gathered by that index
+// once at the end, so device memory sees one read and one write of each word
+// and the shared memory need does not depend on the payload count.
 //
-// What bounds it on this card is not device bytes (16,384 pairs move 256 KB,
-// under a microsecond at 3.35 TB/s) but the one SM it runs on: the latency
-// of each pass's chain of steps, most of it in the ranking of step (c),
-// where each row of 32 waits on the leaders' adds of the row before it
-// (after nine ballots), and its shared memory, which sets kSingleMax. So
-// the design shortens the chain: passes of 8 bits (4 for 32 bits, not 8 of
-// 4 bits), the onesweep kernel's ballot ranker (rank_rows: no per-thread
-// counter table to scan), and 32 warps, each ranking only its own rows, so
-// that a warp's chain is about n / 1024 rows; a small sort takes few warps.
-// A gather of 4-byte words from device memory costs one SM a sector a word,
-// so each payload stream is copied whole into the keys' buffer once the keys
-// are written out, gathered there and written in order. Each pass:
-//  (a) every warp takes the contiguous run of items first + 32 j + lane,
-//      holds its keys in registers and counts their digits into its own row
-//      of warp_runs with shared atomics;
+// What bounds it on this card is not device bytes (65,536 pairs move 1 MB,
+// 0.3 microseconds at 3.35 TB/s) but latency: each pass's chain of steps,
+// most of it in the ranking of step (c), where each row of 32 waits on the
+// leaders' adds of the row before it (after nine ballots). So the design
+// shortens the chain: passes of 8 bits (4 for 32 bits, not 8 of 4 bits),
+// the onesweep kernel's ballot ranker (rank_rows: no per-thread counter
+// table to scan), and 32 warps a CTA, each ranking only its own rows, so
+// that a warp's chain is about slice / 1024 rows; a small sort takes few
+// warps. A small input runs on one CTA; a larger one on a cluster of CTAs
+// (CLUSTER; faster on the H100 from about 6,000 elements, and the only way
+// past one SM's shared memory), CTA r holding the contiguous slice
+// [r * slice, r * slice + slice) of the input and of the output, which
+// shortens each CTA's chain as well. The cluster's CTAs exchange their
+// elements through distributed shared memory, where a store costs far more
+// than in a CTA's own, and most when a warp's 32 stores fall apart: so each
+// CTA ranks into its own shared memory as one CTA does, then copies its
+// elements out in rank order, where a warp's stores fall on few runs of
+// consecutive places in one other CTA. A gather of 4-byte words from device
+// memory costs one SM a sector a word, so each payload stream is copied
+// whole into the keys' buffers once the keys are written out, gathered
+// there and written in order. Each pass:
+//  (a) every warp takes the contiguous run of items first + 32 j + lane of
+//      its CTA's slice, holds its keys in registers and counts their digits
+//      into its own row of warp_runs with shared atomics;
 //  (b) a scan over (digit, warp), digit-major, gives each warp its first
-//      rank of each digit;
+//      rank of each digit in its CTA; in a cluster each CTA also publishes
+//      its count of each digit in cta_counts;
 //  (c) the warp ranks its rows in order, kRankRows at a time, and writes
-//      each key (from its registers) and its source index (from the other
-//      index buffer) to its rank. The order is (digit, warp, row, lane),
-//      input order within a digit, so the pass is stable. Every key was read
-//      in (a), so the keys are rewritten in place; the index is read here,
-//      so it has two buffers. Each warp then zeroes its row of warp_runs.
+//      each key (from its registers) and its source index (from the index
+//      buffer it read) to its rank, in the CTA's own staged buffers. The
+//      order is (digit, warp, row, lane), input order within a digit, so
+//      the pass is stable. One CTA alone rewrites its keys in place (every
+//      key was read in (a)) and alternates its two index buffers: that is
+//      the pass. In a cluster:
+//  (d) after a cluster barrier (every CTA's counts published and its
+//      elements staged, so every CTA's buffers 0 are free), each CTA reads
+//      every CTA's counts: a digit's count over the cluster, and in the
+//      CTAs before it; a scan over the digits gives each digit's start in
+//      the cluster's order (digit, CTA, warp, row, lane), still stable, and
+//      so the shift from a digit's rank in the CTA to its rank in the
+//      cluster;
+//  (e) each CTA copies its staged keys and indices, in rank order, to their
+//      ranks: into buffers 0 of the CTA whose slice holds each, and a
+//      cluster barrier ends the pass.
+// The index is the element's position in the whole input (a u16: at most
+// 65,536 elements). A cluster's last barrier comes after its last read of
+// another CTA's shared memory, so that no CTA exits while it is read.
+template <bool CLUSTER>
 __global__ void __launch_bounds__(kSingleThreads)
-    sort_single_tile_kernel(Streams s, int n, PassDigits plan) {
+    sort_single_tile_kernel(Streams s, int n, int slice, PassDigits plan) {
+  constexpr int kKeyBuffers = CLUSTER ? 2 : 1;
   extern __shared__ __align__(16) uint32_t smem_single[];
-  uint32_t* keys = smem_single;                                       // [kSingleMax]
-  uint16_t* index = reinterpret_cast<uint16_t*>(keys + kSingleMax);   // [2][kSingleMax]
-  int* warp_runs = reinterpret_cast<int*>(index + 2 * kSingleMax);    // [kSingleWarps][kMaxBins]
+  uint32_t* keys = smem_single;                                                   // [kKeyBuffers][kSliceMax]
+  uint16_t* index = reinterpret_cast<uint16_t*>(keys + kKeyBuffers * kSliceMax);  // [2][kSliceMax]
+  int* warp_runs = reinterpret_cast<int*>(index + 2 * kSliceMax);                 // [kSingleWarps][kMaxBins]
   __shared__ const uint32_t* s_in[kMaxStreams];
   __shared__ uint32_t* s_out[kMaxStreams];
   __shared__ Digit s_digit[kMaxPasses];
   __shared__ int warp_sums[kSingleWarps + 1];
+  // a cluster's: this CTA's count of each digit in the pass, the shift from
+  // a digit's rank in the CTA to its rank in the cluster, and every CTA's
+  // buffers 0 and counts as this CTA addresses them
+  __shared__ int cta_counts[kMaxBins];
+  __shared__ int shift[kMaxBins];
+  __shared__ uint32_t* s_keys[kMaxCluster];
+  __shared__ uint16_t* s_index[kMaxCluster];
+  __shared__ const int* s_counts[kMaxCluster];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
+  int cta = 0, ctas = 1;
+  if constexpr (CLUSTER) {
+    cta = static_cast<int>(cg::this_cluster().block_rank());
+    ctas = static_cast<int>(cg::this_cluster().num_blocks());
+  }
+  auto cluster_sync = [] {
+    if constexpr (CLUSTER) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  };
+  const int lo = cta * slice;                  // this CTA's slice of the input and the output
+  const int mine = max(0, min(slice, n - lo));  // its elements: the last CTA's may be fewer, or none
   if (t == 0) {  // the launch arguments indexed at run time, with static indices
 #pragma unroll
     for (int j = 0; j < kMaxStreams; ++j) {
@@ -456,28 +513,36 @@ __global__ void __launch_bounds__(kSingleThreads)
     }
 #pragma unroll
     for (int p = 0; p < kMaxPasses; ++p) s_digit[p] = plan.pass[p];
+    if constexpr (CLUSTER) {
+      for (int c = 0; c < ctas; ++c) {
+        s_keys[c] = cg::this_cluster().map_shared_rank(keys, c);
+        s_index[c] = cg::this_cluster().map_shared_rank(index, c);
+        s_counts[c] = cg::this_cluster().map_shared_rank(cta_counts, c);
+      }
+    }
   }
   for (int i = t; i < kSingleWarps * kMaxBins; i += kSingleThreads) warp_runs[i] = 0;
-  load_words(s.in[0], keys, n);
-  for (int i = t; i < n; i += kSingleThreads) index[i] = static_cast<uint16_t>(i);
+  load_words(s.in[0] + lo, keys, mine);
+  for (int i = t; i < mine; i += kSingleThreads) index[i] = static_cast<uint16_t>(lo + i);
   __syncthreads();
 
   // rows of 32 items per warp, in whole chunks of kRankRows, so that no warp
   // ranks an empty row and a small sort takes few warps
-  const int rows = (n + kSingleThreads * kRankRows - 1) / (kSingleThreads * kRankRows) * kRankRows;
+  const int rows = (slice + kSingleThreads * kRankRows - 1) / (kSingleThreads * kRankRows) * kRankRows;
   const int first = warp * rows * 32;
   int* runs = warp_runs + warp * kMaxBins;
+  uint32_t* staged = keys + (CLUSTER ? kSliceMax : 0);  // the keys in rank order in the CTA (one CTA: in place)
   for (int p = 0; p < plan.count; ++p) {
     const Digit digit = s_digit[p];
-    const uint16_t* src = index + (p & 1) * kSingleMax;
-    uint16_t* dst = index + ((p + 1) & 1) * kSingleMax;
+    const uint16_t* src = index + (CLUSTER ? 0 : (p & 1) * kSliceMax);
+    uint16_t* dst = index + (CLUSTER ? kSliceMax : ((p + 1) & 1) * kSliceMax);
     // (a)
     uint32_t key[kSingleItems];
 #pragma unroll
     for (int j = 0; j < kSingleItems; ++j) {
       const int i = first + 32 * j + lane;
       key[j] = 0;
-      if (j < rows && i < n) {
+      if (j < rows && i < mine) {
         key[j] = keys[i];
         atomicAdd(&runs[digit.of(key[j])], 1);
       }
@@ -489,10 +554,12 @@ __global__ void __launch_bounds__(kSingleThreads)
     if (owns_digit) {
 #pragma unroll 8
       for (int w = 0; w < kSingleWarps; ++w) count += warp_runs[w * kMaxBins + t];
+      if constexpr (CLUSTER) cta_counts[t] = count;
     }
     int total;
-    int run = block_exclusive_sum<kSingleThreads>(count, warp_sums, &total);
+    const int start = block_exclusive_sum<kSingleThreads>(count, warp_sums, &total);
     if (owns_digit) {
+      int run = start;
 #pragma unroll 8
       for (int w = 0; w < kSingleWarps; ++w) {
         const int c = warp_runs[w * kMaxBins + t];
@@ -509,33 +576,70 @@ __global__ void __launch_bounds__(kSingleThreads)
 #pragma unroll
         for (int j = 0; j < kRankRows; ++j) {
           const int i = first + 32 * (c + j) + lane;
-          dig[j] = c + j < rows && i < n ? digit.of(key[c + j]) : kMaxBins;
+          dig[j] = c + j < rows && i < mine ? digit.of(key[c + j]) : kMaxBins;
         }
         rank_rows(dig, digit.nbits, runs, [&](int j, int rank) {
-          keys[rank] = key[c + j];
+          staged[rank] = key[c + j];
           dst[rank] = src[first + 32 * (c + j) + lane];
         });
       }
     }
     for (int d = lane; d < kMaxBins; d += 32) runs[d] = 0;  // after rank_rows' last __syncwarp
-    __syncthreads();
+    if constexpr (CLUSTER) {
+      cg::this_cluster().sync();
+      // (d) the counts of every CTA, their loads all in flight at once
+      int counts[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) counts[c] = owns_digit && c < ctas ? s_counts[c][t] : 0;
+      int all = 0, before = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        all += counts[c];
+        before += c < cta ? counts[c] : 0;
+      }
+      const int cluster_start = block_exclusive_sum<kSingleThreads>(all, warp_sums, &total);
+      if (owns_digit) shift[t] = cluster_start + before - start;
+      __syncthreads();
+      // (e)
+      for (int q = t; q < mine; q += kSingleThreads) {
+        const uint32_t k = staged[q];
+        const int rank = q + shift[digit.of(k)];
+        const int owner = rank / slice;
+        const int at = rank - owner * slice;
+        s_keys[owner][at] = k;
+        s_index[owner][at] = dst[q];
+      }
+    }
+    cluster_sync();
   }
 
-  const uint16_t* order = index + (plan.count & 1) * kSingleMax;
-  for (int i = t; i < n; i += kSingleThreads) s_out[0][i] = keys[i];
-  for (int st = 1; st < s.count; ++st) {  // each payload through the keys' buffer
-    __syncthreads();
-    load_words(s_in[st], keys, n);
-    __syncthreads();
-    uint32_t* out = s_out[st];
-    for (int i = t; i < n; i += kSingleThreads) out[i] = keys[order[i]];
+  // the output slice's keys and source indices: buffers 0 in a cluster
+  const uint16_t* order = index + (CLUSTER ? 0 : (plan.count & 1) * kSliceMax);
+  for (int i = t; i < mine; i += kSingleThreads) s_out[0][lo + i] = keys[i];
+  for (int st = 1; st < s.count; ++st) {  // each payload through the keys' buffers 0
+    cluster_sync();  // every read of the buffers (this CTA's, and the gathers of the stream before) done
+    load_words(s_in[st] + lo, keys, mine);
+    cluster_sync();
+    uint32_t* out = s_out[st] + lo;
+    for (int i = t; i < mine; i += kSingleThreads) {
+      const int from = order[i];
+      if constexpr (CLUSTER) {
+        const int owner = from / slice;
+        out[i] = s_keys[owner][from - owner * slice];
+      } else {
+        out[i] = keys[from];
+      }
+    }
+  }
+  if constexpr (CLUSTER) {
+    if (s.count > 1) cg::this_cluster().sync();  // the gathers' reads of the other CTAs
   }
 }
 
 constexpr int onesweep_smem(int nstreams) {
   return nstreams * kTile * 4 + kTile * 2 + kTileWarps * kMaxBins * 4;
 }
-constexpr int kSingleTileSmem = kSingleMax * 4 + 2 * kSingleMax * 2 + kSingleWarps * kMaxBins * 4;
+constexpr int kSingleTileSmem = 2 * kSliceMax * 4 + 2 * kSliceMax * 2 + kSingleWarps * kMaxBins * 4;  // both forms
 
 bool fill_streams(Streams* s, const void* const* in, void* const* out, int count) {
   if (in == nullptr || out == nullptr || count < 1 || count > kMaxStreams) return false;
@@ -589,10 +693,35 @@ cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long 
   return err;
 }
 
+template <bool CLUSTER>
 cudaError_t allow_single_tile_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem(reinterpret_cast<const void*>(sort_single_tile_kernel), kSingleTileSmem, &done);
+  return allow_smem(reinterpret_cast<const void*>(sort_single_tile_kernel<CLUSTER>), kSingleTileSmem, &done);
 }
+
+// K3's launch on a cluster of ctas CTAs (2..kMaxCluster) in one row: the
+// configuration of the launch and of cudaOccupancyMaxActiveClusters.
+struct ClusterLaunch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attribute[1];
+
+  ClusterLaunch(int ctas, cudaStream_t stream) {
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(kSingleThreads);
+    config.dynamicSmemBytes = kSingleTileSmem;
+    config.stream = stream;
+    attribute[0].id = cudaLaunchAttributeClusterDimension;
+    attribute[0].val.clusterDim.x = ctas;
+    attribute[0].val.clusterDim.y = 1;
+    attribute[0].val.clusterDim.z = 1;
+    config.attrs = attribute;
+    config.numAttrs = 1;
+  }
+};
+
+// The slice of each CTA of K3 on ctas CTAs: n split evenly, rounded up to
+// whole 16-byte vectors (the last CTA takes what is left); n itself on one.
+int single_tile_slice(int n, int ctas) { return ctas == 1 ? n : ((n + ctas - 1) / ctas + 3) / 4 * 4; }
 
 // The most any onesweep launch takes (kMaxStreams streams); a launch with
 // fewer streams asks for less.
@@ -645,6 +774,8 @@ extern "C" {
 
 int glu_sort_tile() { return kTile; }
 int glu_sort_single_tile_max() { return kSingleMax; }
+int glu_sort_slice_max() { return kSliceMax; }
+int glu_sort_max_cluster() { return kMaxCluster; }
 int glu_sort_max_streams() { return kMaxStreams; }
 int glu_sort_bins() { return kMaxBins; }
 const char* glu_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
@@ -726,19 +857,45 @@ int glu_onesweep_sort(const void* const* in, void* const* out, void* const* tmp,
   return err;
 }
 
-// bits, nbits, npasses: the passes, as fill_plan takes them.
+// K3 on ctas CTAs (1..kMaxCluster; each CTA's slice, single_tile_slice(n,
+// ctas), at most kSliceMax): one CTA, or a cluster of ctas CTAs. bits,
+// nbits, npasses: the passes, as fill_plan takes them.
 int glu_sort_single_tile(const void* const* in, void* const* out, int nstreams, int n,
-                         const int* bits, const int* nbits, int npasses, void* stream) {
+                         const int* bits, const int* nbits, int npasses, int ctas, void* stream) {
   Streams s;
   PassDigits plan;
-  if (n < 1 || n > kSingleMax || !fill_streams(&s, in, out, nstreams) ||
-      !fill_plan(&plan, bits, nbits, npasses))
+  if (n < 1 || n > kSingleMax || ctas < 1 || ctas > kMaxCluster || single_tile_slice(n, ctas) > kSliceMax ||
+      !fill_streams(&s, in, out, nstreams) || !fill_plan(&plan, bits, nbits, npasses))
     return cudaErrorInvalidValue;
-  const cudaError_t err = allow_single_tile_smem();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas == 1) {
+    const cudaError_t err = allow_single_tile_smem<false>();
+    if (err != cudaSuccess) return err;
+    sort_single_tile_kernel<false><<<1, kSingleThreads, kSingleTileSmem, st>>>(s, n, n, plan);
+    return cudaGetLastError();
+  }
+  cudaError_t err = allow_single_tile_smem<true>();
   if (err != cudaSuccess) return err;
-  sort_single_tile_kernel<<<1, kSingleThreads, kSingleTileSmem,
-                            static_cast<cudaStream_t>(stream)>>>(s, n, plan);
-  return cudaGetLastError();
+  ClusterLaunch launch(ctas, st);
+  err = cudaLaunchKernelEx(&launch.config, sort_single_tile_kernel<true>, s, n, single_tile_slice(n, ctas), plan);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// How many clusters of ctas CTAs of K3 the device can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: such a launch is refused), or minus
+// the CUDA error that stopped the query.
+int glu_sort_single_tile_clusters(int ctas) {
+  if (ctas < 2 || ctas > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_single_tile_smem<true>();
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    ClusterLaunch launch(ctas, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(sort_single_tile_kernel<true>),
+                                         &launch.config);
+  }
+  cudaGetLastError();
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ from .ops.radix_sort import radix_sort
 from .utils.buffers import default_device, from_numpy, to_numpy
 from .utils.errors import GluError, check_argument, check_state
 
-ENTRY_N = 65536  # pairs of entry()'s example: above SINGLE_TILE_MAX, so the multi-tile engine
+ENTRY_N = 65536  # pairs of entry()'s example: SINGLE_TILE_MAX, so K3 alone, on a cluster of CTAs
 DRYRUN_N_LOCAL = 1024  # pairs a rank in dryrun_multichip
 COLLECTIVE_TIMEOUT_S = 60  # the process group's: a collective that waits longer raises
 DRYRUN_TIMEOUT_S = 300  # the whole dry run: spawn, import torch, join the group, the cases
@@ -44,8 +44,9 @@ def entry(device=None):
     torch.Generator seeded with 0 on the CPU, so every device gets the same
     ones; the values are arange(65,536). `fn(keys, values)` is radix_sort
     with the backend resolved once, here ("cuda" unless
-    GLU_TPU_TORCH_BACKEND says otherwise): on the card, one digit_histograms
-    and four onesweep_pass launches."""
+    GLU_TPU_TORCH_BACKEND says otherwise): on the card, one sort_single_tile
+    launch (K3 on a thread-block cluster), as the JAX entry's sort is one
+    _single_block_sort."""
     device = default_device(device)
     gen = torch.Generator().manual_seed(0)
     keys = torch.randint(-(2**31), 2**31, (ENTRY_N,), dtype=torch.int32, generator=gen)

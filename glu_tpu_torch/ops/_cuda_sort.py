@@ -21,7 +21,10 @@ written anew from what it computes (csrc/radix_sort.cu):
         read once and written once (K1 + glue + K2 of the TPU engine, fused).
   An input of at most SINGLE_TILE_MAX elements instead takes
     K3 `sort_single_tile` -- one CTA runs every pass (the same passes of up
-        to 8 bits) in shared memory.
+        to 8 bits) in shared memory; above CTA_MAX elements a thread-block
+        cluster of MAX_CLUSTER CTAs does, each ranking a slice in its own
+        shared memory and copying each element to the CTA whose slice holds
+        its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
 in one call to the library.
@@ -52,13 +55,21 @@ BINS = 1 << MAX_FIELD_BITS
 MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
 
 # Kernel geometry, fixed at compile time in csrc/radix_sort.cu (kTile,
-# kSingleMax, kMaxStreams, kMaxBins); the library is checked against it when
-# loaded. The plain versions read TILE and SINGLE_TILE_MAX at call time, so
-# the CPU tests shrink them to reach many tiles, ragged tails and the
-# single-tile path at tiny n.
+# kSingleMax, kSliceMax, kMaxCluster, kMaxStreams, kMaxBins); the library
+# is checked against it when loaded. The plain versions read TILE,
+# SINGLE_TILE_MAX, SLICE_MAX and CTA_MAX at call time, so the CPU tests
+# shrink them to reach many tiles, ragged tails, the single-tile path and
+# K3's clusters at tiny n.
 TILE = 6144
-SINGLE_TILE_MAX = 24576
+SINGLE_TILE_MAX = 65536  # K3's limit: the JAX engine's single block, _FUSE_MAX_R x LANES
+SLICE_MAX = 16384        # the most elements a CTA of K3 holds (its shared memory)
+MAX_CLUSTER = 8          # the portable cluster size
 MAX_STREAMS = 8
+
+# The most elements K3 sorts on one CTA; above, on a cluster of MAX_CLUSTER
+# CTAs, which on the H100 is the faster from here on and 1.5x slower at
+# 256-4,096 elements (tools/k3_ctas.py; PERF.md).
+CTA_MAX = 6144
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -119,8 +130,8 @@ _lib = None  # the kernel library, its geometry checked, once loaded
 def _sort_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_max_streams=MAX_STREAMS,
-                       sort_bins=BINS)
+        _lib = kernels(sort_tile=TILE, sort_single_tile_max=SINGLE_TILE_MAX, sort_slice_max=SLICE_MAX,
+                       sort_max_cluster=MAX_CLUSTER, sort_max_streams=MAX_STREAMS, sort_bins=BINS)
     return _lib
 
 
@@ -272,12 +283,50 @@ def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Ten
 
 
 def sort_single_tile_ref(keys: torch.Tensor, payloads, positions):
-    """Plain version of K3, pass by pass as the kernel runs them: one stable
-    sort on the digit of each group of _pass_groups, LSB-first."""
+    """Plain version of K3's function, pass by pass as the kernel runs them:
+    one stable sort on the digit of each group of _pass_groups, LSB-first."""
     order = torch.arange(keys.numel(), device=keys.device)
     for g in _pass_groups(positions):
         order = order[torch.sort(_digits(keys[order], g), stable=True).indices]
     return keys[order], [v[order] for v in payloads]
+
+
+def single_tile_ctas(n: int) -> int:
+    """K3's CTAs for n elements: one up to CTA_MAX, else MAX_CLUSTER."""
+    return 1 if n <= CTA_MAX else MAX_CLUSTER
+
+
+def single_tile_slice(n: int, ctas: int) -> int:
+    """The elements of each CTA's slice (the kernel's single_tile_slice): n
+    split evenly, rounded up to whole 16-byte vectors, the last CTA taking
+    what is left; n itself on one CTA."""
+    return n if ctas == 1 else -(-cdiv(n, ctas) // 4) * 4
+
+
+def sort_single_tile_cluster_ref(keys: torch.Tensor, payloads, positions, ctas: int):
+    """Plain version of K3's arithmetic on `ctas` CTAs, pass by pass: CTA r
+    holds the slots [r * slice, r * slice + slice) of the keys and of their
+    source index; (a) each CTA counts its digits; (b) a digit's start in
+    CTA r is its global start plus its count in the CTAs before r (one
+    exclusive cumsum in (digit, CTA) order, run_offsets); (c) each slot goes
+    to that start plus its rank among the CTA's equal digits in slot order
+    (the kernel's warp, row, lane). The payloads are gathered by the final
+    index."""
+    n = keys.numel()
+    slot = torch.arange(n, device=keys.device)
+    cta = slot // single_tile_slice(n, ctas)
+    index = slot  # the input position each slot holds
+    for g in _pass_groups(positions):
+        bins = 1 << len(g)
+        group = cta * bins + _digits(keys, g)  # (CTA, digit), CTA-major
+        counts = torch.bincount(group, minlength=ctas * bins)
+        starts = run_offsets(counts.view(ctas, bins)).view(-1)
+        in_group = torch.sort(group, stable=True).indices  # each group's slots in slot order
+        first = torch.cumsum(counts, 0) - counts  # where each group starts in in_group
+        rank = torch.empty_like(slot)
+        rank[in_group] = starts[group[in_group]] + slot - first[group[in_group]]
+        keys, index = keys.new_empty(n).index_put_((rank,), keys), index.new_empty(n).index_put_((rank,), index)
+    return keys, [v[index] for v in payloads]
 
 
 @functools.lru_cache(maxsize=64)
@@ -288,25 +337,26 @@ def _single_tile_plan(positions: tuple) -> tuple:
     return positions, _plan_args(_pass_groups(positions))
 
 
-def sort_single_tile(keys: torch.Tensor, payloads, positions):
+def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None = None):
     """K3 (replaces _pallas_sort.py::_single_block_sort): the whole LSD sort
     by the bits at `positions` (1-32 of them, in passes of up to 8 bits) of
-    at most SINGLE_TILE_MAX elements in one launch. Returns (keys, list of
-    payloads)."""
+    at most SINGLE_TILE_MAX elements in one launch, on single_tile_ctas(n)
+    CTAs (more than one: a thread-block cluster), or on `ctas` (1 to
+    MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
+    checks and timings give. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
     streams = _check_streams(keys, payloads)
     positions, plan = _single_tile_plan(tuple(positions))
-    check_argument(
-        keys.numel() <= SINGLE_TILE_MAX,
-        "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, keys.numel(),
-    )
+    n = keys.numel()
+    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
+    ctas = single_tile_ctas(n) if ctas is None else ctas
+    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER, SLICE_MAX,
+                   n, ctas)
     if not on_cuda(keys):
-        return sort_single_tile_ref(keys, list(payloads), positions)
+        return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
     outs = [torch.empty_like(s) for s in streams]
-    _launch(
-        "glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams),
-        keys.numel(), *plan,
-    )
+    _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan, ctas)
     sort_single_tile_launches += 1
     return outs[0], outs[1:]
 
@@ -333,9 +383,9 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     bit_positions (optional, LSB-first) restricts the sort to those key
     bits; None means bits 0..4*num_steps-1 (the reference contract).
 
-    Up to SINGLE_TILE_MAX elements take K3 alone; larger inputs take
-    onesweep_sort: one digit_histograms launch and one onesweep_pass per
-    group of 8 bits."""
+    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a
+    cluster of CTAs); larger inputs take onesweep_sort: one
+    digit_histograms launch and one onesweep_pass per group of 8 bits."""
     payloads = list(payloads)
     if bit_positions is None:
         positions = tuple(range(num_steps * FIELD_BITS))

@@ -20,7 +20,9 @@ an H100 (`_H100_MODEL`). It is read once per device and kept.
 
 The model's form is the engine's (ops/_cuda_sort.py): up to SINGLE_TILE_MAX
 pairs K3 alone, costing a fixed time (the wrapper's host time) plus n x
-passes x a rate; above it one histogram launch and one onesweep pass per 8
+passes x a rate, one pair of them for one CTA (up to CTA_MAX) and one for a
+cluster of CTAs (the cluster's barriers and its stores into the other CTAs'
+shared memory); above it one histogram launch and one onesweep pass per 8
 key bits, costing the larger of a fixed time plus a time a pass (the
 host's call and the launches' latency) and the card's (n x (the
 histogram's rate + passes x the pass's rate)). The
@@ -69,41 +71,41 @@ from . import backend as _backend
 _H100_MODEL = {
     "device": "NVIDIA H100 80GB HBM3",
     "power_limit_w": 700.0,
-    "k3_fixed_us": 70.389,
-    "k3_ns_per_key_pass": [0.64019, 0.75304, 0.8342],
-    "onesweep_fixed_us": 91.573,
-    "onesweep_pass_us": 14.347,
-    "onesweep_hist_ns_per_key": 0.0049942,
-    "onesweep_ns_per_key_pass": [0.0081999, 0.0095398, 0.014246],
+    "k3_fixed_us": 48.474,
+    "k3_ns_per_key_pass": [0.50313, 0.58125, 1.2703],
+    "k3_cluster_fixed_us": 69.493,
+    "k3_cluster_ns_per_key_pass": [0.15283, 0.16764, 0.23226],
+    "onesweep_fixed_us": 56.331,
+    "onesweep_pass_us": 17.077,
+    "onesweep_hist_ns_per_key": 0.0045567,
+    "onesweep_ns_per_key_pass": [0.0087576, 0.0098899, 0.014531],
     "torch_ns_per_key": {
         "keys": [
-            [10.0, 140.87], [12.0, 33.555], [14.0, 8.877], [14.584963, 6.0143], [14.585021, 5.7693],
-            [15.0, 4.3643], [16.0, 2.2803], [17.0, 1.1748], [18.0, 0.5542], [20.0, 0.17392],
-            [22.0, 0.097359], [24.0, 0.085152], [26.0, 0.091333], [28.0, 0.090183],
+            [10.0, 86.562], [12.0, 23.422], [14.0, 6.3594], [15.0, 3.3564], [16.0, 1.7114], [16.000022, 1.665],
+            [17.0, 0.83105], [18.0, 0.42383], [20.0, 0.14789], [22.0, 0.091736], [24.0, 0.085606], [26.0, 0.091563],
+            [28.0, 0.090247],
         ],
         "kv": [
-            [10.0, 149.34], [12.0, 35.117], [14.0, 10.191], [14.584963, 6.6211], [14.585021, 6.6],
-            [15.0, 4.7002], [16.0, 2.2251], [17.0, 1.1702], [18.0, 0.60461], [20.0, 0.18668],
-            [22.0, 0.11124], [24.0, 0.11022], [26.0, 0.12458], [28.0, 0.12604],
+            [10.0, 90.781], [12.0, 23.469], [14.0, 6.6348], [15.0, 3.4639], [16.0, 1.771], [16.000022, 1.873],
+            [17.0, 0.85913], [18.0, 0.4563], [20.0, 0.16495], [22.0, 0.10208], [24.0, 0.111], [26.0, 0.12458],
+            [28.0, 0.12617],
         ],
         "multi2": [
-            [10.0, 156.94], [12.0, 36.883], [14.0, 10.35], [14.584963, 6.6159], [14.585021, 7.0674],
-            [15.0, 4.4238], [16.0, 2.144], [17.0, 1.3838], [18.0, 0.66235], [20.0, 0.19849],
-            [22.0, 0.12606], [24.0, 0.13528], [26.0, 0.15871], [28.0, 0.16173],
+            [10.0, 119.41], [12.0, 28.344], [14.0, 7.2129], [15.0, 3.5117], [16.0, 1.8071], [16.000022, 1.8022],
+            [17.0, 0.98804], [18.0, 0.52197], [20.0, 0.18335], [22.0, 0.11366], [24.0, 0.13539], [26.0, 0.15837],
+            [28.0, 0.16177],
         ],
         "u64": [
-            [10.0, 296.66], [12.0, 66.445], [14.0, 17.455], [14.584963, 11.724], [14.585021, 12.97],
-            [15.0, 8.7285], [16.0, 5.0356], [17.0, 2.3149], [18.0, 1.2063], [20.0, 0.40475],
-            [22.0, 0.24788], [24.0, 0.23983], [26.0, 0.26591],
+            [10.0, 170.78], [12.0, 47.398], [14.0, 13.541], [15.0, 6.7842], [16.0, 3.4224], [16.000022, 3.6479],
+            [17.0, 1.812], [18.0, 0.91553], [20.0, 0.35721], [22.0, 0.22616], [24.0, 0.24047], [26.0, 0.26618],
         ],
         "segmented": [
-            [10.0, 277.37], [12.0, 62.313], [14.0, 19.811], [14.584963, 12.775], [14.585021, 13.945],
-            [15.0, 10.097], [16.0, 4.834], [17.0, 2.5552], [18.0, 1.2721], [20.0, 0.39587],
-            [22.0, 0.23611], [24.0, 0.18274], [26.0, 0.17993],
+            [10.0, 170.44], [12.0, 47.695], [14.0, 13.398], [15.0, 6.8437], [16.0, 3.585], [16.000022, 3.5278],
+            [17.0, 2.0225], [18.0, 0.93823], [20.0, 0.32623], [22.0, 0.2218], [24.0, 0.18338], [26.0, 0.17985],
         ],
     },
-    "torch_slope": {"keys": 0.0, "kv": 0.00073, "multi2": 0.00151, "u64": 0.01304, "segmented": 0.0},
-    "compact_us": 19.744,
+    "torch_slope": {"keys": 0.0, "kv": 0.000795, "multi2": 0.0017, "u64": 0.012855, "segmented": 0.0},
+    "compact_us": 0.608,
     "compact_ns_per_key": 0.0,
     "reduce_torch_max_n": 268435456,
 }
@@ -132,6 +134,8 @@ class _CostModel:
         self.model = model
         self.k3_fixed_us = float(model["k3_fixed_us"])
         self.k3_ns = tuple(model["k3_ns_per_key_pass"])
+        self.k3_cluster_fixed_us = float(model["k3_cluster_fixed_us"])
+        self.k3_cluster_ns = tuple(model["k3_cluster_ns_per_key_pass"])
         self.os_fixed_us = float(model["onesweep_fixed_us"])
         self.os_pass_us = float(model["onesweep_pass_us"])
         self.hist_ns = float(model["onesweep_hist_ns_per_key"])
@@ -246,13 +250,14 @@ def _torch_sort_est_s(m: _CostModel, n: int, num_streams: int, full_cover: bool 
 def _cuda_sort_est_s(m: _CostModel, n: int, num_streams: int, npasses: int) -> float:
     """Estimated seconds of the engine's sort of n keys with num_streams
     payloads in npasses passes of up to 8 bits: K3 alone up to
-    SINGLE_TILE_MAX (its host time, then its one launch), else one
-    histogram and npasses onesweep passes (the host's time or the card's,
-    whichever is longer)."""
+    SINGLE_TILE_MAX (its host time, then its one launch, on one CTA or a
+    cluster), else one histogram and npasses onesweep passes (the host's
+    time or the card's, whichever is longer)."""
     if npasses == 0 or n <= 1:
         return 0.0
     if n <= cs.SINGLE_TILE_MAX:
-        return (m.k3_fixed_us + n * npasses * _per_payloads(m.k3_ns, num_streams) * 1e-3) * 1e-6
+        fixed_us, rates = _k3_terms(m, n)
+        return (fixed_us + n * npasses * _per_payloads(rates, num_streams) * 1e-3) * 1e-6
     # the host launches each pass while the card runs the one before, so the
     # call takes the longer of the two (a sum overestimated 2^22 pairs by a
     # third on the H100, past torch's time, where the engine was faster)
@@ -268,8 +273,16 @@ def _chain_est_s(m: _CostModel, n: int, first: tuple, second: tuple) -> float:
     a, b = _cuda_sort_est_s(m, n, *first), _cuda_sort_est_s(m, n, *second)
     if a == 0.0 or b == 0.0:
         return a + b
-    fixed = m.k3_fixed_us if n <= cs.SINGLE_TILE_MAX else m.os_fixed_us
+    fixed = _k3_terms(m, n)[0] if n <= cs.SINGLE_TILE_MAX else m.os_fixed_us
     return a + b - min(fixed * 1e-6, b)
+
+
+def _k3_terms(m: _CostModel, n: int) -> tuple:
+    """K3's (fixed us, ns a key a pass by payloads) at n: one CTA's up to
+    CTA_MAX, the cluster's above."""
+    if n <= cs.CTA_MAX:
+        return m.k3_fixed_us, m.k3_ns
+    return m.k3_cluster_fixed_us, m.k3_cluster_ns
 
 
 def _npasses_of(positions: tuple) -> int:
@@ -352,8 +365,9 @@ def _reduce_backend(backend, x: torch.Tensor) -> str:
 # calibration
 # ---------------------------------------------------------------------------
 
-# sizes of the calibration ladder: around the K3 limit (24,576), then doublings
-LADDER = (1 << 10, 1 << 12, 1 << 14, 24576, 24577, 1 << 15, 1 << 16, 1 << 17, 1 << 18,
+# sizes of the calibration ladder: doublings, and around the K3 limit
+# (65,536); the engine's sorts are timed where K3 leaves one CTA (CTA_MAX) too
+LADDER = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 1 << 16, 65537, 1 << 17, 1 << 18,
           1 << 20, 1 << 22, 1 << 24, 1 << 26, 1 << 28)
 QUICK_MAX = 1 << 26  # --quick stops here
 TWO_WORD_MAX = 1 << 26  # the u64 and segmented forms stop here
@@ -440,10 +454,12 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     it to `out` (default: router_calibration_path()); returns the model.
 
     Both backends of each form are timed over `ladder` (default LADDER;
-    quick: up to 2^26; u64 and segmented up to 2^26), the engine also at 1
-    pass with 0, 1 and 2 payloads at SINGLE_TILE_MAX, at the sizes above it
-    up to 2^20 and at the largest up to 2^26, which fix its fixed times and
-    rates, and the reduce REDUCE_READINGS times. `timer(calls)` takes a dict of functions by point, (backend,
+    quick: up to 2^26; u64 and segmented up to 2^26), the engine also at
+    CTA_MAX / 2, CTA_MAX and SINGLE_TILE_MAX (so that K3 on one CTA has two
+    sizes whatever the ladder), and at 1 pass with 0, 1 and 2 payloads at
+    the sizes above SINGLE_TILE_MAX up to 2^20 and at the largest up to
+    2^26, which fix its fixed times and rates, and the reduce
+    REDUCE_READINGS times. `timer(calls)` takes a dict of functions by point, (backend,
     form, n, passes), and returns the seconds of one call of each; the calls
     of every size up to HOST_BOUND_MAX are timed together, those of each
     larger size together. The default times on the card as
@@ -462,7 +478,7 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     sizes = sorted(set(LADDER if ladder is None else ladder))
     if quick:
         sizes = [n for n in sizes if n <= QUICK_MAX]
-    k3_n = cs.SINGLE_TILE_MAX
+    k3_n, cta_n = cs.SINGLE_TILE_MAX, min(cs.CTA_MAX, cs.SINGLE_TILE_MAX)
     above = [n for n in sizes if k3_n < n <= TWO_WORD_MAX]
     check_argument(len(above) >= 2, "the ladder needs two sizes from SINGLE_TILE_MAX (%d) to 2^26", k3_n)
     n_big = above[-1]
@@ -499,8 +515,8 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
         return lambda: rs._sort_two_words(major, minor, major_pos, full, [iota[:n]], b)
 
     # the calls of each size, with the engine's 1-pass sorts beside its full
-    # ones where the fit compares them: at K3's limit, at the sizes where
-    # the multi-tile path is bound by its fixed time, and at n_big. Every
+    # ones where the fit compares them: at the sizes where the multi-tile
+    # path is bound by its fixed time, and at n_big. Every
     # size up to HOST_BOUND_MAX is timed in one group, so that each point's
     # median is taken over the same moments of the host, whose speed moves
     # by up to 2x from one second to the next on the H100's machines:
@@ -508,9 +524,9 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     # size that met a fast moment would be set against the engine's fixed
     # time, a median pooled over all the sizes. The larger sizes, a call of
     # which is up to 1,000x longer, a size at a time.
-    one_pass_sizes = {k3_n, n_big} | {n for n in sizes if k3_n < n <= HOST_BOUND_MAX}
+    one_pass_sizes = {n_big} | {n for n in sizes if k3_n < n <= HOST_BOUND_MAX}
     host_bound = {}
-    for n in sorted(set(sizes) | {k3_n}):
+    for n in sorted(set(sizes) | {cta_n // 2, cta_n, k3_n}):
         calls = {}
         for form in ("keys", "kv", "multi2"):
             if n in sizes:
@@ -532,7 +548,7 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
 
     model = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
              "power_limit_w": _power_limit_w(device) if device.type == "cuda" else None}
-    model.update(_fit_model(measured, sizes, k3_n))
+    model.update(_fit_model(measured, sizes, k3_n, cta_n))
     # reduce: K5 and torch's, timed together REDUCE_READINGS times a size,
     # each reading of the two in the same rounds (the host's drift, which
     # moves these times by 2x from one reading to the next on the H100,
@@ -561,13 +577,19 @@ def calibrate(device=None, ladder=None, timer=None, *, quick: bool = False, out:
     return model
 
 
-def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
+def _fit_model(measured: dict, sizes: list, k3_n: int, cta_n: int) -> dict:
     """The model's rates from calibrate's measurements, a dict of seconds by
     (backend, form, n, passes)."""
     n_big = max(n for n in sizes if k3_n < n <= TWO_WORD_MAX)
-    # the engine. K3: its per-key rate by payloads from 1 and 4 passes at its
-    # limit, and its fixed time, the median over its points of what the rate
-    # leaves. The multi-tile path: the card's rates by payloads from 1 and 4
+    # the engine. K3 on one CTA (up to CTA_MAX) and on a cluster (above):
+    # each one's per-key rate a pass by payloads from its full sorts at its
+    # smallest and largest sizes, and its fixed time, the median over its
+    # points of what the rate leaves (a cluster without two sizes of its
+    # own, as where the two limits meet, takes one CTA's terms). Not from 1 and 4
+    # passes at one size: each pass also has a fixed part (its scans and, in
+    # a cluster, its barriers), which that rate counted as keys and so
+    # overestimated the largest sorts (on the H100 by a tenth at 65,536
+    # pairs). The multi-tile path: the card's rates by payloads from 1 and 4
     # passes at n_big; the fixed times from the medians of the 1-pass and of
     # the 4-pass sorts where the card's estimate is under half the time:
     # fixed + 1 pass and fixed + 4 passes (the host's call, the launches'
@@ -582,27 +604,41 @@ def _fit_model(measured: dict, sizes: list, k3_n: int) -> dict:
 
     extra = cs.MAX_PASSES - 1
     forms = ("keys", "kv", "multi2")
-    k3_ns, os_ns, hist = [], [], []
+
+    def rate(form, n):  # ns a key a pass of the engine's sort of n keys, from 1 and 4 passes
+        t1, t4 = measured[("cuda", form, n, 1)], measured[("cuda", form, n, cs.MAX_PASSES)]
+        return max((t4 - t1) / (extra * n), 0.0)
+
+    def k3_terms(lo_n, hi_n):
+        """K3's (fixed s, s a key a pass by payloads) from its points in
+        (lo_n, hi_n], or None where they are of one size."""
+        points = {(form, n, p): t for (b, form, n, p), t in measured.items()
+                  if b == "cuda" and form in forms and lo_n < n <= hi_n}
+        lo, hi = min(n for _, n, _ in points), max(n for _, n, _ in points)
+        if lo == hi:
+            return None
+        full = {(form, n): t for (form, n, p), t in points.items() if p == cs.MAX_PASSES}
+        rates = [max((full[(form, hi)] - full[(form, lo)]) / (cs.MAX_PASSES * (hi - lo)), 0.0) for form in forms]
+        return median([t - n * p * rates[forms.index(form)] for (form, n, p), t in points.items()]), rates
+
+    os_ns, hist = [], []
     for form in forms:
-        t1, t4 = measured[("cuda", form, k3_n, 1)], measured[("cuda", form, k3_n, cs.MAX_PASSES)]
-        k3_ns.append(max((t4 - t1) / (extra * k3_n), 0.0))
-        b1, b4 = measured[("cuda", form, n_big, 1)], measured[("cuda", form, n_big, cs.MAX_PASSES)]
-        os_ns.append(max((b4 - b1) / (extra * n_big), 0.0))
-        hist.append(b1 / n_big - os_ns[-1])
+        os_ns.append(rate(form, n_big))
+        hist.append(measured[("cuda", form, n_big, 1)] / n_big - os_ns[-1])
     hist = max(median(hist), 0.0)
-    k3_left, host = [], {1: [], cs.MAX_PASSES: []}
+    host = {1: [], cs.MAX_PASSES: []}
     for (b, form, n, p), t in measured.items():
-        if b == "cuda" and form in forms:
-            s = forms.index(form)
-            if n <= k3_n:
-                k3_left.append(t - n * p * k3_ns[s])
-            elif n * (hist + p * os_ns[s]) < t / 2:
-                host[p].append(t)
+        if b == "cuda" and form in forms and n > k3_n and n * (hist + p * os_ns[forms.index(form)]) < t / 2:
+            host[p].append(t)
     one, full = median(host[1]), median(host[cs.MAX_PASSES])
     per_pass = max((full - one) / extra, 0.0)
+    k3_fixed, k3_ns = k3_terms(0, cta_n)
+    k3c_fixed, k3c_ns = (k3_terms(cta_n, k3_n) if cta_n < k3_n else None) or (k3_fixed, k3_ns)
     model = {
-        "k3_fixed_us": _sig(max(median(k3_left), 0.0) * 1e6),
+        "k3_fixed_us": _sig(max(k3_fixed, 0.0) * 1e6),
         "k3_ns_per_key_pass": [_sig(r * 1e9) for r in k3_ns],
+        "k3_cluster_fixed_us": _sig(max(k3c_fixed, 0.0) * 1e6),
+        "k3_cluster_ns_per_key_pass": [_sig(r * 1e9) for r in k3c_ns],
         "onesweep_fixed_us": _sig(max(one - per_pass, 0.0) * 1e6),
         "onesweep_pass_us": _sig(per_pass * 1e6),
         "onesweep_hist_ns_per_key": _sig(hist * 1e9),

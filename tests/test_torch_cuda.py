@@ -124,10 +124,12 @@ def test_digit_histograms_every_pass_at_once(dev):
 
 
 @pytest.mark.parametrize("positions", [tuple(range(32)), tuple(range(12)), tuple(range(24, 32)), (31, 0, 17, 5, 9)])
-@pytest.mark.parametrize("n", [1, 2, 1000, 10000, cs.SINGLE_TILE_MAX])
+@pytest.mark.parametrize("n", [1, 2, 1000, cs.CTA_MAX, cs.CTA_MAX + 1, 10000, 24576, 24577, 32768, 49153, 65535,
+                               cs.SINGLE_TILE_MAX])
 def test_sort_single_tile_matches_plain(dev, n, positions):
     # 4 passes of 8 bits, 8 + 4, the top byte, 5 scattered bits; 0, 1 and 7
-    # payload streams (the most a sort takes)
+    # payload streams (the most a sort takes); one CTA up to CTA_MAX, a
+    # cluster above
     for kind in ("uniform", "constant", "mod3"):
         keys = _words(kind, n, dev)
         for streams in (0, 1, 7):
@@ -139,6 +141,32 @@ def test_sort_single_tile_matches_plain(dev, n, positions):
             assert cs.launch_counts()["sort_single_tile"] - before == 1
             want = cs.sort_single_tile_ref(keys, pays, positions)
             _assert_same([got[0], *got[1]], [want[0], *want[1]])
+
+
+@pytest.mark.parametrize("n,ctas", [(n, c) for n in (cs.SLICE_MAX, 49153, cs.SINGLE_TILE_MAX)
+                                    for c in range(1, cs.MAX_CLUSTER + 1) if cs.single_tile_slice(n, c) <= cs.SLICE_MAX])
+def test_sort_single_tile_on_every_cluster(dev, n, ctas):
+    # K3 on each CTA count that holds n, one CTA and every cluster (the
+    # slices ragged at 49,153), against its plain version
+    keys = _words("uniform", n, dev)
+    pays = [torch.arange(n, dtype=torch.int32, device=dev), _words("mod3", n, dev)]
+    for positions in (tuple(range(32)), (31, 0, 17, 5, 9)):
+        got = cs.sort_single_tile(keys, pays, positions, ctas=ctas)
+        want = cs.sort_single_tile_ref(keys, pays, positions)
+        _assert_same([got[0], *got[1]], [want[0], *want[1]])
+
+
+def test_sort_single_tile_refused_launch_raises(dev):
+    # a launch the C entry refuses (65,536 elements on 2 CTAs: slices over
+    # SLICE_MAX) raises GluError through the wrapper's error check,
+    # uncounted
+    keys = _words("uniform", cs.SINGLE_TILE_MAX, dev)
+    before = cs.launch_counts()["sort_single_tile"]
+    with pytest.raises(glu_tpu_torch.GluError, match="glu_sort_single_tile failed"):
+        cs._launch("glu_sort_single_tile", dev, cs._pointers([keys]), cs._pointers([torch.empty_like(keys)]), 1,
+                   keys.numel(), *cs._single_tile_plan(tuple(range(32)))[1], 2)
+    assert cs.launch_counts()["sort_single_tile"] == before
+    assert all(cs._sort_lib().glu_sort_single_tile_clusters(c) >= 1 for c in range(2, cs.MAX_CLUSTER + 1))
 
 
 @pytest.mark.parametrize("n,calls", [(cs.SINGLE_TILE_MAX, (0, 0, 1)), (cs.SINGLE_TILE_MAX + 1, (1, 4, 0))])
@@ -186,8 +214,8 @@ def shipped_table(monkeypatch, tmp_path):
 @pytest.mark.parametrize("n,route", [(49_152, "cuda"), (1 << 22, "cuda"), (1 << 24, "cuda")])
 def test_routed_radix_sort_launches(dev, shipped_table, n, route):
     # backend=None launches what the shipped table's route says: on the
-    # H100 the engine at every multi-tile size, 1 + 4 launches (one library
-    # call a sort, faster than torch.sort's route from 24,577 pairs up)
+    # H100 the engine at every size, K3 up to SINGLE_TILE_MAX (a cluster
+    # above CTA_MAX) and 1 + 4 launches above (one library call a sort)
     keys = _words("uniform", n, dev).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     chosen = shipped_table._sort_backend(None, keys, n, 1, 4, True)
@@ -199,7 +227,8 @@ def test_routed_radix_sort_launches(dev, shipped_table, n, route):
     _assert_same([out_k.view(torch.int32), out_v.view(torch.int32)],
                  [ref_k.view(torch.int32), ref_v.view(torch.int32)])
     launched = tuple(after[k] - before[k] for k in ("digit_histograms", "onesweep_pass", "sort_single_tile"))
-    assert launched == ((1, 4, 0) if chosen == "cuda" else (0, 0, 0))
+    engine = (0, 0, 1) if n <= cs.SINGLE_TILE_MAX else (1, 4, 0)
+    assert launched == (engine if chosen == "cuda" else (0, 0, 0))
 
 
 def test_buffers_and_timing_on_card(dev):

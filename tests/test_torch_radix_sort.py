@@ -5,9 +5,10 @@ generator and go to all three; keys and values must be bit-identical.
 
 Each case runs through both of the port's backends: "cuda", the radix
 engine, which here runs its kernels' plain torch versions with the tile
-shrunk to 256 elements and the single-tile limit to 512, so that inputs
-span many tiles with a ragged tail or take the single-tile path; and
-"torch", one stable torch.sort.
+shrunk to 256 elements, the single-tile limit to 512 and a CTA's to 128,
+so that inputs span many tiles with a ragged tail or take the single-tile
+path on one CTA or on a cluster; and "torch", one stable torch.sort. The
+engine's own geometry is held against the JAX package at K3's edges.
 """
 
 import jax.numpy as jnp
@@ -25,12 +26,15 @@ from glu_tpu_torch.utils import GluError
 
 SMALL_TILE = 256
 SMALL_SINGLE_MAX = 512
+SMALL_CTA_MAX = 128
+GEOMETRY = {name: getattr(cs, name) for name in ("TILE", "SINGLE_TILE_MAX", "CTA_MAX")}  # the engine's
 
 
 @pytest.fixture(autouse=True)
 def small_tiles(monkeypatch):
     monkeypatch.setattr(cs, "TILE", SMALL_TILE)
     monkeypatch.setattr(cs, "SINGLE_TILE_MAX", SMALL_SINGLE_MAX)
+    monkeypatch.setattr(cs, "CTA_MAX", SMALL_CTA_MAX)
 
 
 def _uniform(seed, n):
@@ -97,12 +101,13 @@ def test_sort_tiny_counts(backend):
 @pytest.mark.parametrize(
     "n,steps,calls",
     [(300, 0, (0, 0, 1)), (SMALL_SINGLE_MAX, 0, (0, 0, 1)), (SMALL_SINGLE_MAX + 1, 0, (1, 4, 0)),
-     (3 * SMALL_TILE + 17, 3, (1, 2, 0))],
+     (3 * SMALL_TILE + 17, 3, (1, 2, 0)), (SMALL_CTA_MAX, 0, (0, 0, 1))],
 )
 def test_engine_takes_each_kernel(n, steps, calls, seeded_rng, monkeypatch):
-    # which kernel wrappers the engine calls: K3 alone up to its limit, else
-    # one digit_histograms and one onesweep_pass per 8 bits (32 bits: 4;
-    # num_steps=3, 12 bits: 8 + 4)
+    # which kernel wrappers the engine calls: K3 alone up to its limit (on
+    # one CTA up to CTA_MAX, on a cluster above), else one digit_histograms
+    # and one onesweep_pass per 8 bits (32 bits: 4; num_steps=3, 12 bits:
+    # 8 + 4)
     seen = {"digit_histograms": 0, "onesweep_pass": 0, "sort_single_tile": 0}
     for name in seen:
         def spy(*args, _name=name, _fn=getattr(cs, name)):
@@ -112,6 +117,31 @@ def test_engine_takes_each_kernel(n, steps, calls, seeded_rng, monkeypatch):
     keys = seeded_rng(5).sample_int_vector(n, 0, 0xFFFFFFFF)
     glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(np.arange(n, dtype=np.uint32), "cpu"), steps)
     assert (seen["digit_histograms"], seen["onesweep_pass"], seen["sort_single_tile"]) == calls
+
+
+@pytest.mark.parametrize("n,ctas,calls", [(24_577, 8, (0, 0, 1)), (65_536, 8, (0, 0, 1)), (65_537, None, (1, 4, 0))])
+def test_sort_at_k3_edges_matches_jax(n, ctas, calls, monkeypatch):
+    # the kernels' geometry: one pair past one CTA and K3's limit take K3 on
+    # a cluster of 8 CTAs, one more pair the multi-tile engine; bit for bit
+    # against glu_tpu on "xla"
+    for name, value in GEOMETRY.items():
+        monkeypatch.setattr(cs, name, value)
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    keys[::7] = keys[0]  # ties across the CTAs' slices
+    vals = np.arange(n, dtype=np.uint32)
+    jk, jv = glu_tpu.radix_sort(jnp.asarray(keys), jnp.asarray(vals), backend="xla")
+    assert ctas is None or cs.single_tile_ctas(n) == ctas
+    cs.reset_launch_counts()
+    tk, tv = glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(vals, "cpu"), backend="cuda")
+    assert tuple(cs.launch_counts().values()) == (0, 0, 0)  # the plain versions launch nothing
+    np.testing.assert_array_equal(to_numpy(tk), np.asarray(jk))
+    np.testing.assert_array_equal(to_numpy(tv), np.asarray(jv))
+    seen = []
+    for name in ("digit_histograms", "onesweep_pass", "sort_single_tile"):
+        monkeypatch.setattr(cs, name, lambda *a, _name=name, _fn=getattr(cs, name), **k: seen.append(_name) or _fn(*a, **k))
+    glu_tpu_torch.radix_sort(from_numpy(keys, "cpu"), from_numpy(vals, "cpu"), backend="cuda")
+    assert tuple(seen.count(name) for name in ("digit_histograms", "onesweep_pass", "sort_single_tile")) == calls
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])

@@ -34,14 +34,17 @@ from glu_tpu_torch.utils.errors import GluArgumentError
 ENV_MODEL = "GLU_TPU_TORCH_ROUTER_CALIBRATION"
 ENV_BACKEND = "GLU_TPU_TORCH_BACKEND"
 
-# A model in the H100 form: K3 costs 30 us + 0.5 ns a key a pass; the
-# multi-tile path max(130 + 45 a pass us, the card's n x rates); torch.sort
-# from 60 ns/key at 2^10 down to 0.1 at 2^22.
+# A model in the H100 form: K3 costs 30 us + 0.5 ns a key a pass on one CTA,
+# 40 us + 0.125 ns on a cluster; the multi-tile path max(130 + 45 a pass us,
+# the card's n x rates); torch.sort from 60 ns/key at 2^10 down to 0.1 at
+# 2^22.
 FIXTURE = {
     "device": "fixture",
     "power_limit_w": None,
     "k3_fixed_us": 30.0,
     "k3_ns_per_key_pass": [0.4, 0.5, 0.6],
+    "k3_cluster_fixed_us": 40.0,
+    "k3_cluster_ns_per_key_pass": [0.1, 0.125, 0.15],
     "onesweep_fixed_us": 130.0,
     "onesweep_pass_us": 45.0,
     "onesweep_hist_ns_per_key": 0.002,
@@ -95,20 +98,21 @@ T = torch.zeros(1, dtype=torch.int32)  # the routers read the device of the tens
 
 
 @pytest.mark.parametrize("n,want", [
-    (2**10, "cuda"), (2**14, "cuda"), (24_577, "torch"), (2**16, "torch"), (2**20, "torch"),
+    (2**10, "cuda"), (2**14, "cuda"), (24_577, "cuda"), (2**16, "cuda"), (65_537, "torch"), (2**20, "torch"),
     (2**22, "cuda"), (2**24, "cuda"), (2**28, "cuda"), (2**29, "cuda"),
 ])
 def test_full_width_kv_crossover(on_card, n, want):
-    # K3's sizes and the largest go to the engine; from 24,577 pairs its
-    # host steps lose to torch.sort until the card's work outweighs them
+    # K3's sizes (one CTA, then a cluster) and the largest go to the engine;
+    # from 65,537 pairs its host steps lose to torch.sort until the card's
+    # work outweighs them
     assert router._sort_backend(None, T, n, 1, 4) == want
 
 
 @pytest.mark.parametrize("payloads,n,want", [
-    (0, 2**16, "torch"), (0, 2**24, "cuda"), (0, 2**28, "cuda"),
-    (2, 2**16, "torch"), (2, 2**22, "cuda"), (2, 2**28, "cuda"),
+    (0, 2**17, "torch"), (0, 2**24, "cuda"), (0, 2**28, "cuda"),
+    (2, 2**17, "torch"), (2, 2**22, "cuda"), (2, 2**28, "cuda"),
     # past 7 payloads both backends sort an index: routed as one payload
-    (9, 2**16, "torch"), (9, 2**24, "cuda"),
+    (9, 2**17, "torch"), (9, 2**24, "cuda"),
 ])
 def test_keys_only_and_multi_payload(on_card, payloads, n, want):
     assert router._sort_backend(None, T, n, payloads, 4) == want
@@ -128,8 +132,8 @@ def test_pruned_bits_favor_engine(on_card):
 
 @pytest.mark.parametrize("n,want", [(cs.SINGLE_TILE_MAX, "cuda"), (cs.SINGLE_TILE_MAX + 1, "torch")])
 def test_k3_regime_edge(on_card, n, want):
-    # up to 24,576 pairs K3 alone (30 us + its passes), one more pair takes
-    # the histogram and 4 onesweep passes (310 us of host steps)
+    # up to 65,536 pairs K3 alone (a cluster: 40 us + its passes), one more
+    # pair takes the histogram and 4 onesweep passes (310 us of host steps)
     assert router._sort_backend(None, T, n, 1, 4) == want
 
 
@@ -194,7 +198,8 @@ def test_cpu_tensor_is_not_routed(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("n,p_hi,p_lo,extra,want", [
-    (2**16, 4, 4, 0, "torch"), (2**20, 4, 4, 0, "torch"), (2**24, 4, 4, 0, "cuda"),
+    # 2^16: two sorts on K3's cluster
+    (2**16, 4, 4, 0, "cuda"), (2**20, 4, 4, 0, "torch"), (2**24, 4, 4, 0, "cuda"),
     # keys below 2^40: one pass of the high word
     (2**22, 1, 4, 1, "cuda"),
     (2**12, 4, 4, 0, "cuda"),
@@ -204,7 +209,7 @@ def test_u64_routes(on_card, n, p_hi, p_lo, extra, want):
 
 
 @pytest.mark.parametrize("n,key_passes,seg_passes,want", [
-    (2**16, 4, 2, "torch"), (2**18, 4, 2, "torch"), (2**24, 4, 2, "cuda"), (2**12, 4, 2, "cuda"),
+    (2**16, 4, 2, "cuda"), (2**18, 4, 2, "torch"), (2**24, 4, 2, "cuda"), (2**12, 4, 2, "cuda"),
     # torch.sort's route 16% faster than the chained engine sorts: within
     # TORCH_MARGIN, a tie, which goes to the engine
     (2**20, 4, 2, "cuda"),
@@ -436,11 +441,13 @@ def test_chained_sorts_overlap_the_second_fixed_time(on_card):
     # u64 keys and segments chain two engine sorts: the second's fixed time
     # is spent on the host while the card runs the first
     m = router._CostModel(FIXTURE)
-    one = router._cuda_sort_est_s(m, 2**16, 2, 4)
-    assert router._chain_est_s(m, 2**16, (2, 4), (2, 4)) == pytest.approx(2 * one - 130e-6)
+    one = router._cuda_sort_est_s(m, 2**17, 2, 4)
+    assert router._chain_est_s(m, 2**17, (2, 4), (2, 4)) == pytest.approx(2 * one - 130e-6)
     assert router._chain_est_s(m, 2**10, (2, 4), (2, 4)) == pytest.approx(
         2 * router._cuda_sort_est_s(m, 2**10, 2, 4) - 30e-6)
-    assert router._chain_est_s(m, 2**16, (2, 4), (2, 0)) == pytest.approx(one)
+    assert router._chain_est_s(m, 2**16, (2, 4), (2, 4)) == pytest.approx(  # K3 on a cluster
+        2 * router._cuda_sort_est_s(m, 2**16, 2, 4) - 40e-6)
+    assert router._chain_est_s(m, 2**17, (2, 4), (2, 0)) == pytest.approx(one)
 
 
 def test_ties_go_to_the_engine(on_card):

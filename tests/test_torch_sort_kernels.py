@@ -16,6 +16,8 @@ comes last, so the port's outputs equal the JAX outputs cut to n, and only
 the top bin of the last block's counts differs, by the pad count.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,15 +150,18 @@ def test_digit_histograms_matches_group_pass_counts(groups, seeded_rng, block_ti
         assert not hist[p, 1 << len(g):].any()
 
 
-@pytest.mark.parametrize(
-    "positions,streams",
-    [(tuple(range(32)), 1), (tuple(range(12)), 0), (tuple(range(12)), 1), ((31, 0, 17, 5, 9), 1),
-     (tuple(range(32)), 3)],
-)
-def test_sort_single_tile_matches_single_block_sort(positions, streams, seeded_rng):
-    # 32 bits (4 passes of 8), 12 bits (8 + 4), 5 scattered bits out of
-    # order (one pass); 0, 1 and 3 payload streams
-    rng = seeded_rng(51)
+# 32 bits (4 passes of 8), 12 bits (8 + 4), 5 scattered bits out of order
+# (one pass); 0, 1 and 3 payload streams
+SINGLE_BLOCK_CASES = [(tuple(range(32)), 1), (tuple(range(12)), 0), (tuple(range(12)), 1), ((31, 0, 17, 5, 9), 1),
+                      (tuple(range(32)), 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _single_block_case(rng_cls, positions, streams):
+    """(keys, payloads, JAX keys, JAX payloads) of one block of BLOCK - 77
+    elements sorted by _single_block_sort in interpret mode, run once per
+    case for the tests of K3 on one CTA and on clusters."""
+    rng = rng_cls(51)
     n = BLOCK - 77
     keys = _keys(rng, "uniform", n)
     vals = [np.arange(n, dtype=np.uint32)] + [rng.sample_int_vector(n, 0, 0xFFFFFFFF) for _ in range(streams - 1)]
@@ -164,11 +169,60 @@ def test_sort_single_tile_matches_single_block_sort(positions, streams, seeded_r
     jk, jvs = ps._single_block_sort(
         _jax_2d(keys, 0xFFFFFFFF, R), [_jax_2d(v, 0, R) for v in vals], R, positions, True
     )
-    tk, tvs = cs.sort_single_tile(_t(keys), [_t(v) for v in vals], positions)
-    np.testing.assert_array_equal(_u32(tk), np.asarray(jk).reshape(-1)[:n])
+    return keys, vals, np.asarray(jk).reshape(-1)[:n], [np.asarray(jv).reshape(-1)[:n] for jv in jvs]
+
+
+def _assert_single_block(got, case, streams) -> None:
+    tk, tvs = got
+    _, _, jk, jvs = case
+    np.testing.assert_array_equal(_u32(tk), jk)
     assert len(tvs) == len(jvs) == streams
     for tv, jv in zip(tvs, jvs):
-        np.testing.assert_array_equal(_u32(tv), np.asarray(jv).reshape(-1)[:n])
+        np.testing.assert_array_equal(_u32(tv), jv)
+
+
+@pytest.mark.parametrize("positions,streams", SINGLE_BLOCK_CASES)
+def test_sort_single_tile_matches_single_block_sort(positions, streams, seeded_rng):
+    case = _single_block_case(seeded_rng, positions, streams)
+    keys, vals = case[:2]
+    assert cs.single_tile_ctas(keys.size) == 1
+    _assert_single_block(cs.sort_single_tile(_t(keys), [_t(v) for v in vals], positions), case, streams)
+    # the function's plain reference, which K3 on the card is held against
+    _assert_single_block(cs.sort_single_tile_ref(_t(keys), [_t(v) for v in vals], positions), case, streams)
+
+
+@pytest.mark.parametrize("ctas", [2, 3, 4])
+@pytest.mark.parametrize("positions,streams", SINGLE_BLOCK_CASES)
+def test_sort_single_tile_cluster_matches_single_block_sort(positions, streams, ctas, seeded_rng):
+    # K3 on a cluster of 2, 3 and 4 CTAs (its plain version: each CTA's
+    # digit counts, the cluster-wide starts, each element's rank stored in
+    # the CTA whose slice holds it): slices of 476 (the last CTA holds 471),
+    # 316 (the last 315) and 240 (the last 227)
+    case = _single_block_case(seeded_rng, positions, streams)
+    keys, vals = case[:2]
+    per_cta = cs.single_tile_slice(keys.size, ctas)
+    assert 0 < keys.size - (ctas - 1) * per_cta < per_cta
+    _assert_single_block(cs.sort_single_tile(_t(keys), [_t(v) for v in vals], positions, ctas=ctas), case, streams)
+
+
+def test_single_tile_ctas_and_slices():
+    # one CTA up to CTA_MAX, then a cluster of MAX_CLUSTER; slices of whole
+    # 16-byte vectors, the last CTA holding what is left
+    assert cs.SINGLE_TILE_MAX == ps._FUSE_MAX_R * ps.LANES == 65536
+    assert cs.single_tile_ctas(cs.CTA_MAX) == 1 and cs.single_tile_slice(cs.CTA_MAX, 1) == cs.CTA_MAX
+    assert cs.single_tile_ctas(cs.CTA_MAX + 1) == cs.MAX_CLUSTER == 8
+    assert cs.single_tile_ctas(cs.SINGLE_TILE_MAX) == 8 and cs.single_tile_slice(65536, 8) == 8192
+    assert [cs.single_tile_slice(65536, c) for c in (3, 4)] == [21848, 16384]
+    assert cs.single_tile_slice(24577, 8) == 3076  # the last CTA holds 3,045
+    assert cs.CTA_MAX <= cs.SLICE_MAX and cs.MAX_CLUSTER * cs.SLICE_MAX >= cs.SINGLE_TILE_MAX
+
+
+@pytest.mark.parametrize("n,ctas", [(65536, 3), (16385, 1), (100, 0), (100, 9)])
+def test_sort_single_tile_refuses_ctas_that_cannot_hold_it(n, ctas):
+    # as the C entry does: 1 to MAX_CLUSTER CTAs, each slice at most SLICE_MAX
+    keys = torch.zeros(n, dtype=torch.int32)
+    with pytest.raises(GluError, match="CTAs"):
+        cs.sort_single_tile(keys, [], tuple(range(32)), ctas=ctas)
 
 
 @pytest.mark.parametrize(
