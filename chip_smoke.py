@@ -91,12 +91,19 @@ Phases, each of which raises (exit code 1) on any failure:
      and u64 forms at 2**24 and 10,000 pairs (K3 alone), distributed_reduce
      and the distributed scans of 2**28 u32 SUM, each bit for bit against
      its single-card call, with the launch counts set to 0 before and read
-     after, and a CPU tensor on the group raising; every rank's stages at
-     D = 4 and 8 of a 2**28-pair global array in this process (the NCCL
-     transfer replaced by slicing along ragged_exchange_plan), joined bit
-     for bit against radix_sort(backend="torch"); timings of the 1-rank sort
-     against radix_sort and of rank 0's _bucket_of, partition and local
-     sort at D = 4 beside their bounds. Its launches join the kernels line;
+     after (KB, the bucket kernel, never: one rank has no bucket stage),
+     and a CPU tensor on the group raising; every rank's stages at D = 2, 4
+     and 8 of a 2**28-pair global array in this process (the NCCL transfer
+     replaced by slicing along ragged_exchange_plan), each rank's buckets
+     (KB, counted) bit for bit against bucket_of_ref, joined bit for bit
+     against radix_sort(backend="torch"); KB against its plain versions on
+     constant keys, repeated splitters (fewer samples than ranks), a shard
+     at a 4-byte offset, the 64-bit form at 2**24 (its words at one offset
+     and at two) and D - 1 splitters on both sides of shared memory's
+     SMEM_SPLITTERS; timings of the 1-rank sort against radix_sort, of KB
+     at rank 0 of D = 4 against its plain version and torch.bucketize, and
+     of rank 0's _bucket_of, partition and local sort at D = 4 beside their
+     bounds. Its launches join the kernels line;
  12. the entry point and the single file (_entry_and_single_file): entry()'s
      fn on the card, one sort_single_tile launch (K3 on a cluster) and
      nothing else, bit for bit against backend "torch" and timed against
@@ -149,7 +156,7 @@ OPS_PER_S = 67e12
 FLOAT_TOL = dict(rtol=1e-4, atol=1e-3)
 # phase 11: the simulated ranks of a 2**28-pair global array, the samples a
 # rank (the default of distributed_radix_sort) and the small sort (K3 alone)
-DIST_WORLD_SIZES = (4, 8)
+DIST_WORLD_SIZES = (2, 4, 8)
 DIST_SAMPLES = 8192
 DIST_SMALL_N = 10_000
 DIST_VARIANT_N = 1 << 24  # the f32, i32 and u64 distributed sorts
@@ -473,6 +480,7 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
     from glu_tpu_torch.ops import _cuda_reduce as cr
     from glu_tpu_torch.ops import _cuda_scan as csc
     from glu_tpu_torch.ops import _cuda_sort as cs
+    from glu_tpu_torch.parallel import _cuda_bucket as cb
     from glu_tpu_torch.parallel import dist_sort as ds
 
     t0 = time.perf_counter()
@@ -539,15 +547,16 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
             print(f"distributed (a): 1-rank group, backend {dist.get_backend()}")
             outs, per_call = {}, {}
             torch.cuda.synchronize()
-            cs.reset_launch_counts()
-            csc.reset_launch_counts()
-            cr.reset_launch_counts()
+            for m in (cs, csc, cr, cb):
+                m.reset_launch_counts()
             for label, (dist_call, _, args, _) in calls.items():  # the main path: these launches count
                 before = launch_counts()
                 outs[label] = dist_call(args)
                 after = launch_counts()
                 per_call[label] = tuple(after[k] - before[k] for k in kernel_order)
             launched = launch_counts()
+            if cb.launch_counts()["bucket_of"]:
+                raise AssertionError(f"a 1-rank group launched KB: {cb.launch_counts()}")
             for label, (_, single_call, args, want_launches) in calls.items():
                 got = outs.pop(label)
                 if per_call[label] != want_launches:
@@ -583,18 +592,42 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
     print(f"time distributed_radix_sort 2^28 pairs, 1 rank: {d1_ms:.3f} ms; radix_sort {single_ms:.3f} ms "
           f"({100 * (d1_ms / single_ms - 1):+.2f}%) {tag}")
 
-    # -- (b) every rank's stages at D = 4 and 8, in one process ----------------
+    # -- (b) every rank's stages at D = 2, 4 and 8, in one process -------------
     keys, values = u32(rand_words(MAIN_N)), iota(MAIN_N)
     want_k, want_v = glu.radix_sort(keys, values, backend="torch")
-    timings = {}
+    timed = {}  # rank 0 at D = 4: its shard, splitters and buckets
+    bucket_err = 0
+
+    def check_buckets(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        nonlocal bucket_err
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise AssertionError(f"KB {label}: {got.dtype} {tuple(got.shape)}, want int32 {tuple(want.shape)}")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        bucket_err = max(bucket_err, err)
+        if err:
+            raise AssertionError(f"KB {label}: differs from its plain version (max abs err {err})")
+
+    def splitters_of(words: list, world: int, samples: int = DIST_SAMPLES) -> tuple:
+        """The splitters of `world` ranks' shards of the global words: every
+        rank's local samples, gathered in rank order (u32 or (hi, lo))."""
+        n = words[0].shape[0] // world
+        if len(words) == 1:
+            local = [ds._local_samples(words[0][r * n:(r + 1) * n], r, samples) for r in range(world)]
+            return ds._sample_splitters(torch.cat([s for s, _ in local]), torch.cat([i for _, i in local]), world)
+        local = [ds._local_samples64(words[0][r * n:(r + 1) * n], words[1][r * n:(r + 1) * n], r, samples)
+                 for r in range(world)]
+        return ds._sample_splitters64(*(torch.cat([loc[j] for loc in local]) for j in range(3)), world)
+
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()  # KB's main path: the bucket stage of every rank
     for world in DIST_WORLD_SIZES:
         n = MAIN_N // world
         shards = [(keys[r * n:(r + 1) * n], values[r * n:(r + 1) * n]) for r in range(world)]
-        local = [ds._local_samples(k, r, DIST_SAMPLES) for r, (k, _) in enumerate(shards)]
-        splitters = ds._sample_splitters(torch.cat([s for s, _ in local]), torch.cat([i for _, i in local]), world)
+        splitters = splitters_of([keys], world)
         parts, part_launches = [], []
         for r, (k, v) in enumerate(shards):
-            bucket = ds._bucket_of(k, r, *splitters)
+            bucket = ds._bucket_of(k, r, *splitters, "cuda")
+            check_buckets(f"D={world} rank {r}", bucket, cb.bucket_of_ref(k, r * n, *splitters))
             before = launch_counts()
             part = ds._partition_by_bucket(bucket, [k, v], world, "cuda")
             after = launch_counts()
@@ -604,9 +637,7 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
             del ref
             parts.append(part)
             if world == 4 and r == 0:
-                timings["_bucket_of"] = (median_ms(lambda: ds._bucket_of(k, 0, *splitters)), 8 * n)
-                timings["_partition_by_bucket"] = (
-                    median_ms(lambda: ds._partition_by_bucket(bucket, [k, v], world, "cuda")), 24 * n)
+                timed = {"keys": k, "values": v, "splitters": splitters, "bucket": bucket}
             del bucket
         counts = torch.stack([p[1] for p in parts]).cpu()  # (source, destination)
         offsets = torch.stack([p[2] for p in parts]).cpu()
@@ -625,25 +656,92 @@ def _distributed_layer(torch, dev, gen, tag: str, median_ms, turns) -> dict:
             if tuple(after[x] - before[x] for x in kernel_order[:3]) != (1, 4, 0):
                 raise AssertionError(f"local sort D={world} rank {d}: launches {after}, {before}")
             if world == 4 and d == 0:
-                timings["local radix_sort"] = (median_ms(lambda: glu.radix_sort(*recv, backend="cuda")),
-                                               16 * int(total[d]))
+                timed["received"] = recv
             out_k.append(sk)
             out_v.append(sv)
         same(f"D={world} ranks' sorts joined", [torch.cat(out_k), torch.cat(out_v)], [want_k, want_v])
-        print(f"distributed (b) D={world}: {world} ranks' stages joined are bit-identical to "
-              f"radix_sort(backend='torch') of 2^28 pairs; received per rank {total.tolist()} "
-              f"(largest {int(total.max()) / n:.4f} x n_local); partitions launched histogram/onesweep/K3 "
-              f"{sorted(set(part_launches))}")
-        del shards, local, parts, out_k, out_v, recv, sk, sv
-    del keys, values, want_k, want_v
+        print(f"distributed (b) D={world}: every rank's KB buckets bit-identical to bucket_of_ref; {world} ranks' "
+              f"stages joined are bit-identical to radix_sort(backend='torch') of 2^28 pairs; received per rank "
+              f"{total.tolist()} (largest {int(total.max()) / n:.4f} x n_local); partitions launched "
+              f"histogram/onesweep/K3 {sorted(set(part_launches))}")
+        del shards, parts, out_k, out_v, recv, sk, sv
+    torch.cuda.synchronize()
+    launched["bucket_of"] = cb.launch_counts()["bucket_of"]
+    if launched["bucket_of"] != sum(DIST_WORLD_SIZES):
+        raise AssertionError(f"the ranks' bucket stages launched KB {launched['bucket_of']} times, want "
+                             f"{sum(DIST_WORLD_SIZES)} (one a rank)")
+    print(f"distributed (b): KB launched {launched['bucket_of']} times, once a rank of D = {DIST_WORLD_SIZES}")
+    del want_k, want_v
+
+    # KB's edge cases against its plain versions (these launches do not count)
+    def kb_case(label: str, shard_keys: list, splitters: tuple, base: int) -> None:
+        fn, ref = (cb.bucket_of, cb.bucket_of_ref) if len(shard_keys) == 1 else (cb.bucket_of64, cb.bucket_of64_ref)
+        check_buckets(label, fn(*shard_keys, base, *splitters), ref(*shard_keys, base, *splitters))
+
+    kb_cases = 0
+    constant = u32(torch.full((MAIN_N // 4,), 0x5EADBEEF, dtype=torch.int32, device=dev))
+    sp = splitters_of([constant], 4)
+    for r in range(4):  # every bucket decided by the global index
+        n = constant.shape[0] // 4
+        kb_case(f"constant keys, D=4 rank {r}", [constant[r * n:(r + 1) * n]], sp, r * n)
+        kb_cases += 1
+    few = u32(rand_words(3))  # 3 samples for 8 ranks: 7 splitters, repeated
+    sp = ds._sample_splitters(few, torch.tensor([5, 1 << 20, 1 << 26], dtype=torch.int64, device=dev), 8)
+    kb_case("repeated splitters (3 samples, D=8)", [keys[: 1 << 26]], sp, 0)
+    n = (1 << 26) - 5  # a slice at a 4-byte offset with a ragged tail
+    sp = splitters_of([keys[: 4 * n]], 4)
+    for off in (1, 2, 3):
+        kb_case(f"shard at a {4 * off}-byte offset", [keys[off:off + n]], sp, 3 * n)
+    kb_cases += 4
+    n24 = 1 << 24
+    hi = u32(rand_words(n24 // 8).repeat(8)[torch.randperm(n24, device=dev, generator=gen)])  # duplicates
+    lo = u32(rand_words(n24))
+    sp = splitters_of([hi, lo], 4)
+    for r in range(4):
+        q = n24 // 4
+        kb_case(f"64-bit 2^24, D=4 rank {r}", [hi[r * q:(r + 1) * q], lo[r * q:(r + 1) * q]], sp, r * q)
+    kb_case("64-bit, hi and lo at one 4-byte offset", [hi[1:1 + q], lo[1:1 + q]], sp, q)
+    kb_case("64-bit, hi and lo at two offsets", [hi[1:1 + q], lo[2:2 + q]], sp, q)
+    kb_cases += 6
+    n22 = 1 << 22
+    for world in (cb.SMEM_SPLITTERS + 1, cb.SMEM_SPLITTERS + 2, 4097):  # D - 1 in, just past and past shared memory
+        kb_case(f"D-1={world - 1} splitters", [keys[:n22]], splitters_of([keys[: 4096 * world]], world, 16), 0)
+        kb_case(f"64-bit, D-1={world - 1} splitters", [hi[:n22], lo[:n22]],
+                splitters_of([hi[: 1024 * world], lo[: 1024 * world]], world, 16), 0)
+        kb_cases += 2
+    del constant, few, hi, lo, sp
+    print(f"distributed (b): KB bit-identical to bucket_of_ref / bucket_of64_ref in {kb_cases} more cases "
+          f"(max abs err {bucket_err})")
 
     # -- (c) timings ---------------------------------------------------------------
+    k, v, splitters, bucket = timed["keys"], timed["values"], timed["splitters"], timed["bucket"]
+    n = k.shape[0]
+    kb_ms, kb_plain_ms = turns(lambda: cb.bucket_of(k, 0, *splitters), lambda: cb.bucket_of_ref(k, 0, *splitters),
+                              reps=FOLD_REPS)
+    # torch.bucketize is not the same function: it counts splitter keys <=
+    # each key and ignores the index tiebreak; on the keys' int32 order-form
+    kw, sw = cb.ordered(k), cb.ordered(splitters[0])
+    bucketize_ms = median_ms(lambda: torch.bucketize(kw, sw, out_int32=True, right=True), reps=FOLD_REPS)
+    del kw, sw
+    kb_bound = _bound(8 * n, n * (4 - 1).bit_length())  # a lexicographic step a splitter level
+    timings = {
+        "_bucket_of": (median_ms(lambda: ds._bucket_of(k, 0, *splitters, "cuda")), 8 * n),
+        "_partition_by_bucket": (median_ms(lambda: ds._partition_by_bucket(bucket, [k, v], 4, "cuda")), 24 * n),
+        "local radix_sort": (median_ms(lambda: glu.radix_sort(*timed["received"], backend="cuda")),
+                             16 * timed["received"][0].shape[0]),
+    }
+    del timed, k, v, bucket, keys, values
+    print(f"time bucket_of (KB), rank 0 of D=4 ({n} u32 keys, 3 splitters): kernel {kb_ms:.4f} ms, plain torch "
+          f"{kb_plain_ms:.4f} ms, torch.bucketize (no index tiebreak) {bucketize_ms:.4f} ms, bound "
+          f"{kb_bound[0]:.4f} ms ({kb_bound[1]}) {tag}")
     for label, (ms, nbytes) in timings.items():
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"time {label}, rank 0 of D=4 (2^26 pairs a rank): {ms:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes} bytes over 3.35 TB/s) {tag}")
     print(f"distributed layer: phase 11 passed ({time.perf_counter() - t0:.1f} s)")
-    return launched
+    row = {"ms": kb_ms, "plain_ms": kb_plain_ms, "bound": kb_bound, "library_ms": bucketize_ms,
+           "max_abs_err": bucket_err}
+    return launched, row
 
 
 def _entry_and_single_file(torch, tag: str, turns) -> dict:
@@ -1447,8 +1545,11 @@ def main() -> int:
     _router_guard(torch, dev, gen, tag)
 
     # -- 11. the distributed layer -----------------------------------------------
-    for name, count in _distributed_layer(torch, dev, gen, tag, median_ms, turns).items():
-        launches[name] += count
+    dist_launches, kb = _distributed_layer(torch, dev, gen, tag, median_ms, turns)
+    for name, count in dist_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    timing["bucket_of"], library["bucket_of"] = (kb["ms"], kb["plain_ms"]), kb["library_ms"]
+    bounds["bucket_of"], max_err["bucket_of"] = kb["bound"], kb["max_abs_err"]
 
     # -- 12. the entry point and the single file -----------------------------------
     for name, count in _entry_and_single_file(torch, tag, turns).items():
@@ -1460,6 +1561,7 @@ def main() -> int:
         "sort_single_tile": ("glu_tpu_torch/csrc/radix_sort.cu", "glu_tpu/ops/_pallas_sort.py:653"),
         "exclusive_scan": ("glu_tpu_torch/csrc/scan.cu", "glu_tpu/ops/_pallas_scan.py:201"),
         "reduce": ("glu_tpu_torch/csrc/reduce.cu", "glu_tpu/ops/_pallas_reduce.py:110"),
+        "bucket_of": ("glu_tpu_torch/csrc/bucket.cu", "glu_tpu/parallel/dist_sort.py:94"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

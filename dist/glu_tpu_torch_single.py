@@ -255,7 +255,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_slice_max",
-                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile"):
+                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile",
+                 "glu_bucket_smem_splitters"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -276,8 +277,13 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
+    # (keys, n, base, splitter keys, splitter indices, splitters, output, stream)
+    lib.glu_bucket_of.argtypes = [ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, c_int, ptr, ptr]
+    # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
+    lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass"):
+                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass", "glu_bucket_of",
+                 "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib
 ''',
@@ -3332,6 +3338,139 @@ __all__ = [
     "make_sort_mesh",
 ]
 ''',
+    'glu_tpu_torch.parallel._cuda_bucket': r'''"""KB: the bucket stage of the distributed sort, a hand-written Hopper
+streaming kernel (csrc/bucket.cu).
+
+Counterpart of glu_tpu/parallel/dist_sort.py:94-110 (`_bucket_of`) and
+:133-147 (`_bucket_of64`), which are not pallas_calls: they unroll the D - 1
+splitter comparisons so that XLA fuses them into one elementwise pass over
+the shard. Each element's destination rank is the count of splitters <=
+(key, global index) in lexicographic order, keys compared unsigned; the
+global index of element i is base + i (base = rank * n), an int64 here
+(the JAX package's uint32 wraps above 2**32 global elements; below, the two
+agree). One launch of `glu_bucket_of` / `glu_bucket_of64` reads the keys
+once and writes the int32 ids once: no global-index array, no (D-1)
+elementwise passes, no int64 key arrays.
+
+Precondition: the splitters are in non-decreasing lexicographic order (key,
+index), or (hi, lo, index), as dist_sort's `_sample_splitters` and
+`_sample_splitters64` return them (quantile positions of one stable sort
+whose gathered indices ascend). The kernel searches them (binary lifting,
+ceil(log2 D) steps); on unsorted splitters it does not count them.
+
+`bucket_of` and `bucket_of64` check their arguments, allocate with
+torch.empty, launch on the current stream and count their launches; given
+CPU tensors they run the plain versions `bucket_of_ref` and
+`bucket_of64_ref`, which count splitter by splitter.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops._common import kernels, launch, on_cuda
+from ..ops.radix_sort import _SIGN
+from ..utils.errors import check_argument
+
+# Splitters staged in shared memory, fixed at compile time in csrc/bucket.cu
+# (kSmemSplitters) and checked when the library is loaded; more are searched
+# in global memory.
+SMEM_SPLITTERS = 2048
+
+# Launch count of KB (both forms), bumped only where it is launched.
+bucket_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global bucket_launches
+    bucket_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"bucket_of": bucket_launches}
+
+
+def ordered(t: torch.Tensor) -> torch.Tensor:
+    """int32 whose signed order is the u32 order of t's words."""
+    return t.view(torch.int32) ^ _SIGN
+
+
+def wide_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the u64 order of (hi, lo) u32 words."""
+    return (ordered(hi).to(torch.int64) << 32) | (lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+
+
+def _count_below(keys: torch.Tensor, base: int, s_keys: torch.Tensor, s_idx: torch.Tensor) -> torch.Tensor:
+    """The count of splitters <= (key, base + i) for each key, keys and
+    splitter keys in a form whose signed order is the key order; one
+    elementwise pass a splitter, int32."""
+    n = keys.shape[0]
+    gidx = base + torch.arange(n, dtype=torch.int64, device=keys.device)
+    bucket = torch.zeros(n, dtype=torch.int32, device=keys.device)
+    for i in range(s_keys.shape[0]):
+        bucket += (s_keys[i] < keys) | ((s_keys[i] == keys) & (s_idx[i] <= gidx))
+    return bucket
+
+
+def bucket_of_ref(words: torch.Tensor, base: int, s_words: torch.Tensor, s_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of `bucket_of`, splitter by splitter (needs no order of
+    the splitters)."""
+    return _count_below(ordered(words), base, ordered(s_words), s_idx)
+
+
+def bucket_of64_ref(hi, lo, base: int, s_hi, s_lo, s_idx) -> torch.Tensor:
+    """Plain version of `bucket_of64`, on int64 keys built from the words."""
+    return _count_below(wide_key(hi, lo), base, wide_key(s_hi, s_lo), s_idx)
+
+
+def _check(words: list, base: int, s_words: list, s_idx: torch.Tensor) -> None:
+    first = words[0]
+    for name, ts, dtype in (("keys", words, torch.uint32), ("splitter keys", s_words, torch.uint32),
+                            ("splitter indices", [s_idx], torch.int64)):
+        for t in ts:
+            check_argument(t.dtype == dtype, "%s must be %s, got %s", name, dtype, t.dtype)
+            check_argument(t.dim() == 1 and t.is_contiguous(), "%s must be 1-D and contiguous", name)
+            check_argument(t.device == first.device, "keys on %s, %s on %s", first.device, name, t.device)
+    check_argument(all(w.shape == first.shape for w in words), "key word length mismatch")
+    check_argument(all(s.shape == s_idx.shape for s in s_words), "splitter length mismatch")
+    check_argument(s_idx.shape[0] < 2**31, "too many splitters: %d", s_idx.shape[0])
+    check_argument(0 <= int(base) <= 2**63 - 1 - first.shape[0], "base %s out of range", base)
+
+
+def _launch(fn_name: str, words: list, base: int, s_words: list, s_idx: torch.Tensor) -> torch.Tensor:
+    global bucket_launches
+    n = words[0].shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=words[0].device)
+    if n == 0:
+        return out
+    lib = kernels(bucket_smem_splitters=SMEM_SPLITTERS)
+    launch(lib, fn_name, out.device, *(w.data_ptr() for w in words), n, int(base),
+           *(s.data_ptr() for s in s_words), s_idx.data_ptr(), s_idx.shape[0], out.data_ptr())
+    bucket_launches += 1
+    return out
+
+
+def bucket_of(words: torch.Tensor, base: int, s_words: torch.Tensor, s_idx: torch.Tensor) -> torch.Tensor:
+    """KB (replaces dist_sort.py::_bucket_of): for each of the n u32 keys
+    `words`, the count of the D - 1 splitters (s_words[j] u32, s_idx[j]
+    int64), in non-decreasing lexicographic order, that are <= (words[i],
+    base + i). Returns n int32, in one launch on a CUDA tensor."""
+    _check([words], base, [s_words], s_idx)
+    if not on_cuda(words):
+        return bucket_of_ref(words, base, s_words, s_idx)
+    return _launch("glu_bucket_of", [words], base, [s_words], s_idx)
+
+
+def bucket_of64(hi: torch.Tensor, lo: torch.Tensor, base: int, s_hi: torch.Tensor, s_lo: torch.Tensor,
+                s_idx: torch.Tensor) -> torch.Tensor:
+    """KB's 64-bit form (replaces dist_sort.py::_bucket_of64): the same count
+    under lexicographic (hi, lo, global index) order, keys given as u32
+    words."""
+    _check([hi, lo], base, [s_hi, s_lo], s_idx)
+    if not on_cuda(hi):
+        return bucket_of64_ref(hi, lo, base, s_hi, s_lo, s_idx)
+    return _launch("glu_bucket_of64", [hi, lo], base, [s_hi, s_lo], s_idx)
+''',
     'glu_tpu_torch.parallel.dist_primitives': r'''"""Distributed reduce and exclusive scan over a torch.distributed process group.
 
 Counterpart of glu_tpu/parallel/dist_primitives.py, with a process group in
@@ -3497,7 +3636,9 @@ global input order that stability refers to). The pipeline, on every rank:
      index tiebreak makes every sample distinct, so runs of equal keys are
      split over ranks as evenly as distinct keys;
   2. bucket partition: the destination rank of each element
-     (`_bucket_of`, plain torch), then one stable partial sort on the
+     (`_bucket_of`: KB, one launch of csrc/bucket.cu on a CUDA tensor and
+     backend "cuda", one read of the keys; parallel/_cuda_bucket.py), then
+     one stable partial sort on the
      bucket ids over exactly ceil(log2 D) bits that carries every stream
      (`_partition_by_bucket`, the radix engine on a CUDA tensor);
   3. the exchange: one all_gather of every rank's counts a destination,
@@ -3557,6 +3698,7 @@ from ..ops.radix_sort import (
     radix_sort_u64_parts,
 )
 from ..utils.errors import check_argument
+from ._cuda_bucket import bucket_of, bucket_of64, bucket_of64_ref, bucket_of_ref, ordered, wide_key
 from .dist_primitives import _all_gather, _check_1d_sharded, _resolve_group
 
 
@@ -3578,16 +3720,6 @@ def _words(t: torch.Tensor) -> torch.Tensor:
 
 def _u32(w: torch.Tensor) -> torch.Tensor:
     return w.view(torch.uint32)
-
-
-def _ordered(t: torch.Tensor) -> torch.Tensor:
-    """int32 whose signed order is the u32 order of t's words."""
-    return _words(t) ^ _SIGN
-
-
-def _wide_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """int64 whose signed order is the u64 order of (hi, lo) u32 words."""
-    return (_ordered(hi).to(torch.int64) << 32) | (_words(lo).to(torch.int64) & 0xFFFFFFFF)
 
 
 # ---------------------------------------------------------------------------
@@ -3618,31 +3750,26 @@ def _quantiles(ordered: torch.Tensor, num_devices: int) -> torch.Tensor:
     return order[torch.arange(1, num_devices, dtype=torch.int64, device=order.device) * m // num_devices]
 
 
-def _count_splitters_below(ordered: torch.Tensor, rank: int, s_ordered: torch.Tensor, s_idx: torch.Tensor):
-    """The count of splitters <= (key, global index) for each element of
-    this rank's shard, keys given by their `ordered` form, one elementwise
-    pass a splitter: the destination rank, int32."""
-    n = ordered.shape[0]
-    gidx = rank * n + torch.arange(n, dtype=torch.int64, device=ordered.device)
-    bucket = torch.zeros(n, dtype=torch.int32, device=ordered.device)
-    for i in range(s_ordered.shape[0]):
-        bucket += (s_ordered[i] < ordered) | ((s_ordered[i] == ordered) & (s_idx[i] <= gidx))
-    return bucket
-
-
 def _sample_splitters(all_samples: torch.Tensor, all_idx: torch.Tensor, num_devices: int):
     """Global quantile splitters from the gathered samples in lexicographic
     (key, global index) order, keys compared unsigned: the pure half of the
     JAX _sample_splitters. Bucket i takes the pairs in [s_{i-1}, s_i).
-    Returns (splitter keys u32, splitter indices int64), D - 1 each."""
-    q = _quantiles(_ordered(all_samples), num_devices)
+    Returns (splitter keys u32, splitter indices int64), D - 1 each, in
+    non-decreasing lexicographic order (KB's precondition)."""
+    q = _quantiles(ordered(all_samples), num_devices)
     return _u32(_words(all_samples)[q]), all_idx[q]
 
 
-def _bucket_of(keys: torch.Tensor, rank: int, splitter_keys: torch.Tensor, splitter_idx: torch.Tensor):
+def _bucket_of(keys: torch.Tensor, rank: int, splitter_keys: torch.Tensor, splitter_idx: torch.Tensor,
+               backend=None):
     """Destination rank of each element of this rank's u32 shard under
-    lexicographic (key, global index) order. Returns int32 bucket ids."""
-    return _count_splitters_below(_ordered(keys), rank, _ordered(splitter_keys), splitter_idx)
+    lexicographic (key, global index) order: KB (`bucket_of`), or its plain
+    version where the backend resolves to "torch". Returns int32 bucket
+    ids."""
+    keys = keys.contiguous()
+    if resolve_backend(backend, keys) == "torch":
+        return bucket_of_ref(keys, rank * keys.shape[0], splitter_keys, splitter_idx)
+    return bucket_of(keys, rank * keys.shape[0], splitter_keys, splitter_idx)
 
 
 def _local_samples64(hi: torch.Tensor, lo: torch.Tensor, rank: int, num_samples: int):
@@ -3655,14 +3782,20 @@ def _local_samples64(hi: torch.Tensor, lo: torch.Tensor, rank: int, num_samples:
 
 def _sample_splitters64(all_hi, all_lo, all_idx, num_devices: int):
     """64-bit analog of _sample_splitters: quantiles in lexicographic (hi,
-    lo, global index) order. Returns (s_hi, s_lo, s_idx)."""
-    q = _quantiles(_wide_key(all_hi, all_lo), num_devices)
+    lo, global index) order. Returns (s_hi, s_lo, s_idx), in non-decreasing
+    lexicographic order."""
+    q = _quantiles(wide_key(all_hi, all_lo), num_devices)
     return _u32(_words(all_hi)[q]), _u32(_words(all_lo)[q]), all_idx[q]
 
 
-def _bucket_of64(hi, lo, rank: int, s_hi, s_lo, s_idx):
-    """Destination rank under lexicographic (hi, lo, global index) order."""
-    return _count_splitters_below(_wide_key(hi, lo), rank, _wide_key(s_hi, s_lo), s_idx)
+def _bucket_of64(hi, lo, rank: int, s_hi, s_lo, s_idx, backend=None):
+    """Destination rank under lexicographic (hi, lo, global index) order:
+    KB's 64-bit form (`bucket_of64`), or its plain version where the backend
+    resolves to "torch"."""
+    hi, lo = hi.contiguous(), lo.contiguous()
+    if resolve_backend(backend, hi) == "torch":
+        return bucket_of64_ref(hi, lo, rank * hi.shape[0], s_hi, s_lo, s_idx)
+    return bucket_of64(hi, lo, rank * hi.shape[0], s_hi, s_lo, s_idx)
 
 
 def _partition_by_bucket(bucket: torch.Tensor, arrays, num_devices: int, backend):
@@ -3773,7 +3906,7 @@ def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices:
     samples, idx = _local_samples(keys, rank, num_samples)
     sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
                                num_devices)
-    bucket = _bucket_of(keys, rank, sk, si)
+    bucket = _bucket_of(keys, rank, sk, si, backend)
     return _exchange_and_sort([keys, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -3788,7 +3921,7 @@ def _dist_sort_shard64(hi, lo, values, local_sort, *, group, rank: int, num_devi
     s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
     gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
     shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
-    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx)
+    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
     return _exchange_and_sort([hi, lo, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -4394,12 +4527,24 @@ from typing import Callable
 import torch
 
 
+def _tensors(result):
+    """Every tensor in result, through nested tuples, lists and dicts."""
+    if isinstance(result, torch.Tensor):
+        yield result
+    elif isinstance(result, (tuple, list, dict)):
+        for item in result.values() if isinstance(result, dict) else result:
+            yield from _tensors(item)
+
+
 def measure_elapsed_time(callback: Callable[[], object], device=None) -> tuple[int, object]:
     """Run `callback`, returning (elapsed nanoseconds, result).
 
     On a CUDA `device` the time is the device time between two CUDA events
     recorded around the callback on the current stream, read after a
-    synchronize. Otherwise it is host wall-clock time.
+    synchronize. Otherwise it is host wall-clock time up to the end of the
+    callback's device work: the device of every CUDA tensor in the result
+    (through nested tuples, lists and dicts) is synchronized before the
+    clock stops, as the JAX function blocks on its result.
     """
     device = torch.device("cpu") if device is None else torch.device(device)
     if device.type == "cuda":
@@ -4413,6 +4558,8 @@ def measure_elapsed_time(callback: Callable[[], object], device=None) -> tuple[i
             return int(start.elapsed_time(end) * 1e6), result
     start_ns = time.perf_counter_ns()
     result = callback()
+    for dev in {t.device for t in _tensors(result) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
     return time.perf_counter_ns() - start_ns, result
 
 
@@ -4459,6 +4606,206 @@ def trace(log_dir: str):
 }
 
 _CUDA_SOURCES = {
+    'bucket.cu': r'''// KB, the bucket stage of the distributed sort: a hand-written Hopper
+// (sm_90a) pass that gives each element of a rank's shard its destination
+// rank (glu_tpu_torch/parallel/_cuda_bucket.py).
+//
+// Replaces glu_tpu/parallel/dist_sort.py::_bucket_of and _bucket_of64, which
+// are not pallas_calls: they unroll the D - 1 splitter comparisons so that
+// XLA fuses them into one elementwise pass over the shard. out[i] is the
+// count of splitters j with (s_hi[j], s_lo[j], s_idx[j]) <= (hi[i], lo[i],
+// base + i) in lexicographic order, the words compared unsigned and the
+// global index as a 64-bit integer (the u32 form has no lo word). The
+// splitters are quantiles of one sorted sample, so they come in
+// non-decreasing lexicographic order, and the count is the length of the
+// prefix of splitters <= the element: a binary search of ceil(log2 D) fixed
+// steps (binary lifting), the same in every lane of a warp.
+//
+// Bound by device-memory bytes: each key word read once and each bucket id
+// written once, 8 bytes an element for u32 keys (0.160 ms for 2^26 at 3.35
+// TB/s) and 12 for 64-bit keys. So the kernel streams: a grid of 8 CTAs of
+// 256 threads an SM strides over the shard, each thread with kUnroll
+// 16-byte loads of 4 keys in flight, and writes 4 ids with one 16-byte store
+// where the output shares the keys' alignment. A shard may be a slice of a
+// larger tensor, aligned to 4 bytes only: the elements before the keys' first
+// 16-byte boundary and the ragged tail are taken one by one. Up to
+// kSmemSplitters splitters are staged in shared memory once a CTA; more are
+// searched where they lie, through L1. No atomics, no scratch.
+//
+// Plain C interface for ctypes; every entry returns a cudaError_t.
+
+#include <algorithm>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBucketThreads = 256;
+constexpr int kCtasPerSm = 2048 / kBucketThreads;
+constexpr int kSmemSplitters = 2048;  // at most 32 KB of splitters (64-bit form): no opt-in needed
+constexpr int kUnroll = 2;
+
+// D - 1 splitters in non-decreasing lexicographic order; lo is unused in the
+// u32 form (WORDS == 1).
+struct Splitters {
+  const uint32_t* hi;
+  const uint32_t* lo;
+  const long long* idx;
+  int m;
+};
+
+// splitter j <= (hi, lo, gidx)
+template <int WORDS>
+__device__ __forceinline__ bool splitter_le(const Splitters& s, int j, uint32_t hi, uint32_t lo, long long gidx) {
+  const uint32_t sh = s.hi[j];
+  if (sh != hi) return sh < hi;
+  if constexpr (WORDS == 2) {
+    const uint32_t sl = s.lo[j];
+    if (sl != lo) return sl < lo;
+  }
+  return s.idx[j] <= gidx;
+}
+
+// The number of splitters <= (hi, lo, gidx): the longest prefix of the
+// sorted splitters that is <= it, found in steps of top, top / 2, ..., 1
+// (top: the largest power of two <= m).
+template <int WORDS>
+__device__ __forceinline__ int count_le(const Splitters& s, int top, uint32_t hi, uint32_t lo, long long gidx) {
+  int pos = 0;
+  for (int step = top; step > 0; step >>= 1) {
+    const int next = pos + step;
+    if (next <= s.m && splitter_le<WORDS>(s, next - 1, hi, lo, gidx)) pos = next;
+  }
+  return pos;
+}
+
+// Elements [head, head + 4 * groups) as groups of 4 (their keys on 16-byte
+// boundaries), the rest one by one. vec_out: out + head is on a 16-byte
+// boundary too.
+template <int WORDS>
+__global__ void __launch_bounds__(kBucketThreads)
+    bucket_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, long long n, long long base,
+                  Splitters s, long long head, long long groups, bool vec_out, int* __restrict__ out) {
+  extern __shared__ long long staged[];  // idx[m], hi[m], lo[m] when m <= kSmemSplitters
+  if (s.m <= kSmemSplitters) {
+    long long* idx = staged;
+    uint32_t* shi = reinterpret_cast<uint32_t*>(idx + s.m);
+    uint32_t* slo = shi + s.m;
+    for (int j = threadIdx.x; j < s.m; j += kBucketThreads) {
+      idx[j] = s.idx[j];
+      shi[j] = s.hi[j];
+      if constexpr (WORDS == 2) slo[j] = s.lo[j];
+    }
+    __syncthreads();
+    s.idx = idx;
+    s.hi = shi;
+    s.lo = slo;
+  }
+  const int top = s.m > 0 ? 1 << (31 - __clz(s.m)) : 0;
+  const long long stride = static_cast<long long>(gridDim.x) * kBucketThreads;
+  const long long t = static_cast<long long>(blockIdx.x) * kBucketThreads + threadIdx.x;
+
+  const uint4* vhi = reinterpret_cast<const uint4*>(hi + head);
+  const uint4* vlo = reinterpret_cast<const uint4*>(lo + head);
+  for (long long g0 = t; g0 < groups; g0 += kUnroll * stride) {
+    uint4 kh[kUnroll], kl[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // every load issued before any search
+      const long long g = g0 + u * stride;
+      if (g < groups) {
+        kh[u] = __ldcs(vhi + g);
+        if constexpr (WORDS == 2) kl[u] = __ldcs(vlo + g);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long g = g0 + u * stride;
+      if (g >= groups) break;
+      const long long i = head + 4 * g;
+      const long long gi = base + i;
+      uint4 l = make_uint4(0, 0, 0, 0);
+      if constexpr (WORDS == 2) l = kl[u];
+      int4 r;
+      r.x = count_le<WORDS>(s, top, kh[u].x, l.x, gi);
+      r.y = count_le<WORDS>(s, top, kh[u].y, l.y, gi + 1);
+      r.z = count_le<WORDS>(s, top, kh[u].z, l.z, gi + 2);
+      r.w = count_le<WORDS>(s, top, kh[u].w, l.w, gi + 3);
+      if (vec_out) {
+        __stcs(reinterpret_cast<int4*>(out + i), r);
+      } else {
+        out[i] = r.x;
+        out[i + 1] = r.y;
+        out[i + 2] = r.z;
+        out[i + 3] = r.w;
+      }
+    }
+  }
+  const long long tail = head + 4 * groups;  // the scalar head [0, head) and tail [tail, n)
+  for (long long k = t; k < head + (n - tail); k += stride) {
+    const long long i = k < head ? k : tail + (k - head);
+    out[i] = count_le<WORDS>(s, top, hi[i], WORDS == 2 ? lo[i] : 0u, base + i);
+  }
+}
+
+template <int WORDS>
+cudaError_t launch_bucket(const uint32_t* hi, const uint32_t* lo, long long n, long long base, Splitters s,
+                          int* out, cudaStream_t stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(hi);
+  long long head = static_cast<long long>((16 - at % 16) % 16 / 4);
+  if (WORDS == 2 && (reinterpret_cast<uintptr_t>(lo) - at) % 16 != 0) head = n;  // no common 16-byte boundary
+  head = std::min(head, n);
+  const long long groups = (n - head) / 4;
+  const bool vec_out = reinterpret_cast<uintptr_t>(out + head) % 16 == 0;
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long work = std::max((groups + kUnroll - 1) / kUnroll, n - 4 * groups);  // a thread's items
+  const int ctas = static_cast<int>(std::max(
+      1LL, std::min(static_cast<long long>(sms) * kCtasPerSm, (work + kBucketThreads - 1) / kBucketThreads)));
+  const size_t smem = s.m <= kSmemSplitters ? static_cast<size_t>(s.m) * (8 + 4 * WORDS) : 0;
+  bucket_kernel<WORDS><<<ctas, kBucketThreads, smem, stream>>>(hi, lo, n, base, s, head, groups, vec_out, out);
+  return cudaGetLastError();
+}
+
+bool valid(const void* keys, long long n, long long base, const void* s_idx, int m, const void* out) {
+  return n >= 1 && base >= 0 && base <= 0x7fffffffffffffffLL - n && m >= 0 && keys != nullptr && out != nullptr &&
+         (m == 0 || s_idx != nullptr) && reinterpret_cast<uintptr_t>(keys) % 4 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int glu_bucket_smem_splitters() { return kSmemSplitters; }
+
+// out[i] = the number of the m splitters (s_keys[j], s_idx[j]) <= (keys[i],
+// base + i), for the n u32 keys; the splitters in non-decreasing
+// lexicographic order. out: n int32.
+int glu_bucket_of(const void* keys, long long n, long long base, const void* s_keys, const void* s_idx, int m,
+                  void* out, void* stream) {
+  if (!valid(keys, n, base, s_idx, m, out) || (m > 0 && s_keys == nullptr)) return cudaErrorInvalidValue;
+  const Splitters s{static_cast<const uint32_t*>(s_keys), nullptr, static_cast<const long long*>(s_idx), m};
+  return launch_bucket<1>(static_cast<const uint32_t*>(keys), nullptr, n, base, s, static_cast<int*>(out),
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The same for 64-bit keys given as (hi, lo) u32 words and splitters
+// (s_hi[j], s_lo[j], s_idx[j]).
+int glu_bucket_of64(const void* hi, const void* lo, long long n, long long base, const void* s_hi, const void* s_lo,
+                    const void* s_idx, int m, void* out, void* stream) {
+  if (!valid(hi, n, base, s_idx, m, out) || lo == nullptr || reinterpret_cast<uintptr_t>(lo) % 4 != 0 ||
+      (m > 0 && (s_hi == nullptr || s_lo == nullptr)))
+    return cudaErrorInvalidValue;
+  const Splitters s{static_cast<const uint32_t*>(s_hi), static_cast<const uint32_t*>(s_lo),
+                    static_cast<const long long*>(s_idx), m};
+  return launch_bucket<2>(static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo), n, base, s,
+                          static_cast<int*>(out), static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"
+''',
     'fold.cuh': r'''// Operators, identities and block-wide folds and scans shared by the reduce
 // (K5, reduce.cu) and exclusive-scan (K4, scan.cu) kernels.
 //

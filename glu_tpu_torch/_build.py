@@ -137,7 +137,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of the kernels' entry points on lib; returns it."""
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in ("glu_sort_tile", "glu_sort_single_tile_max", "glu_sort_slice_max",
-                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile"):
+                 "glu_sort_max_cluster", "glu_sort_max_streams", "glu_sort_bins", "glu_fold_tile", "glu_scan_tile",
+                 "glu_bucket_smem_splitters"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = c_int
     lib.glu_error_string.argtypes = [c_int]
@@ -158,7 +159,12 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
     lib.glu_scan_pass.argtypes = [ptr, ptr, c_int, ctypes.c_longlong, c_int, c_int, ptr, ptr]
+    # (keys, n, base, splitter keys, splitter indices, splitters, output, stream)
+    lib.glu_bucket_of.argtypes = [ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, c_int, ptr, ptr]
+    # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
+    lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass"):
+                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass", "glu_bucket_of",
+                 "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib

@@ -11,7 +11,9 @@ global input order that stability refers to). The pipeline, on every rank:
      index tiebreak makes every sample distinct, so runs of equal keys are
      split over ranks as evenly as distinct keys;
   2. bucket partition: the destination rank of each element
-     (`_bucket_of`, plain torch), then one stable partial sort on the
+     (`_bucket_of`: KB, one launch of csrc/bucket.cu on a CUDA tensor and
+     backend "cuda", one read of the keys; parallel/_cuda_bucket.py), then
+     one stable partial sort on the
      bucket ids over exactly ceil(log2 D) bits that carries every stream
      (`_partition_by_bucket`, the radix engine on a CUDA tensor);
   3. the exchange: one all_gather of every rank's counts a destination,
@@ -71,6 +73,7 @@ from ..ops.radix_sort import (
     radix_sort_u64_parts,
 )
 from ..utils.errors import check_argument
+from ._cuda_bucket import bucket_of, bucket_of64, bucket_of64_ref, bucket_of_ref, ordered, wide_key
 from .dist_primitives import _all_gather, _check_1d_sharded, _resolve_group
 
 
@@ -92,16 +95,6 @@ def _words(t: torch.Tensor) -> torch.Tensor:
 
 def _u32(w: torch.Tensor) -> torch.Tensor:
     return w.view(torch.uint32)
-
-
-def _ordered(t: torch.Tensor) -> torch.Tensor:
-    """int32 whose signed order is the u32 order of t's words."""
-    return _words(t) ^ _SIGN
-
-
-def _wide_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """int64 whose signed order is the u64 order of (hi, lo) u32 words."""
-    return (_ordered(hi).to(torch.int64) << 32) | (_words(lo).to(torch.int64) & 0xFFFFFFFF)
 
 
 # ---------------------------------------------------------------------------
@@ -132,31 +125,26 @@ def _quantiles(ordered: torch.Tensor, num_devices: int) -> torch.Tensor:
     return order[torch.arange(1, num_devices, dtype=torch.int64, device=order.device) * m // num_devices]
 
 
-def _count_splitters_below(ordered: torch.Tensor, rank: int, s_ordered: torch.Tensor, s_idx: torch.Tensor):
-    """The count of splitters <= (key, global index) for each element of
-    this rank's shard, keys given by their `ordered` form, one elementwise
-    pass a splitter: the destination rank, int32."""
-    n = ordered.shape[0]
-    gidx = rank * n + torch.arange(n, dtype=torch.int64, device=ordered.device)
-    bucket = torch.zeros(n, dtype=torch.int32, device=ordered.device)
-    for i in range(s_ordered.shape[0]):
-        bucket += (s_ordered[i] < ordered) | ((s_ordered[i] == ordered) & (s_idx[i] <= gidx))
-    return bucket
-
-
 def _sample_splitters(all_samples: torch.Tensor, all_idx: torch.Tensor, num_devices: int):
     """Global quantile splitters from the gathered samples in lexicographic
     (key, global index) order, keys compared unsigned: the pure half of the
     JAX _sample_splitters. Bucket i takes the pairs in [s_{i-1}, s_i).
-    Returns (splitter keys u32, splitter indices int64), D - 1 each."""
-    q = _quantiles(_ordered(all_samples), num_devices)
+    Returns (splitter keys u32, splitter indices int64), D - 1 each, in
+    non-decreasing lexicographic order (KB's precondition)."""
+    q = _quantiles(ordered(all_samples), num_devices)
     return _u32(_words(all_samples)[q]), all_idx[q]
 
 
-def _bucket_of(keys: torch.Tensor, rank: int, splitter_keys: torch.Tensor, splitter_idx: torch.Tensor):
+def _bucket_of(keys: torch.Tensor, rank: int, splitter_keys: torch.Tensor, splitter_idx: torch.Tensor,
+               backend=None):
     """Destination rank of each element of this rank's u32 shard under
-    lexicographic (key, global index) order. Returns int32 bucket ids."""
-    return _count_splitters_below(_ordered(keys), rank, _ordered(splitter_keys), splitter_idx)
+    lexicographic (key, global index) order: KB (`bucket_of`), or its plain
+    version where the backend resolves to "torch". Returns int32 bucket
+    ids."""
+    keys = keys.contiguous()
+    if resolve_backend(backend, keys) == "torch":
+        return bucket_of_ref(keys, rank * keys.shape[0], splitter_keys, splitter_idx)
+    return bucket_of(keys, rank * keys.shape[0], splitter_keys, splitter_idx)
 
 
 def _local_samples64(hi: torch.Tensor, lo: torch.Tensor, rank: int, num_samples: int):
@@ -169,14 +157,20 @@ def _local_samples64(hi: torch.Tensor, lo: torch.Tensor, rank: int, num_samples:
 
 def _sample_splitters64(all_hi, all_lo, all_idx, num_devices: int):
     """64-bit analog of _sample_splitters: quantiles in lexicographic (hi,
-    lo, global index) order. Returns (s_hi, s_lo, s_idx)."""
-    q = _quantiles(_wide_key(all_hi, all_lo), num_devices)
+    lo, global index) order. Returns (s_hi, s_lo, s_idx), in non-decreasing
+    lexicographic order."""
+    q = _quantiles(wide_key(all_hi, all_lo), num_devices)
     return _u32(_words(all_hi)[q]), _u32(_words(all_lo)[q]), all_idx[q]
 
 
-def _bucket_of64(hi, lo, rank: int, s_hi, s_lo, s_idx):
-    """Destination rank under lexicographic (hi, lo, global index) order."""
-    return _count_splitters_below(_wide_key(hi, lo), rank, _wide_key(s_hi, s_lo), s_idx)
+def _bucket_of64(hi, lo, rank: int, s_hi, s_lo, s_idx, backend=None):
+    """Destination rank under lexicographic (hi, lo, global index) order:
+    KB's 64-bit form (`bucket_of64`), or its plain version where the backend
+    resolves to "torch"."""
+    hi, lo = hi.contiguous(), lo.contiguous()
+    if resolve_backend(backend, hi) == "torch":
+        return bucket_of64_ref(hi, lo, rank * hi.shape[0], s_hi, s_lo, s_idx)
+    return bucket_of64(hi, lo, rank * hi.shape[0], s_hi, s_lo, s_idx)
 
 
 def _partition_by_bucket(bucket: torch.Tensor, arrays, num_devices: int, backend):
@@ -287,7 +281,7 @@ def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices:
     samples, idx = _local_samples(keys, rank, num_samples)
     sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
                                num_devices)
-    bucket = _bucket_of(keys, rank, sk, si)
+    bucket = _bucket_of(keys, rank, sk, si, backend)
     return _exchange_and_sort([keys, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -302,7 +296,7 @@ def _dist_sort_shard64(hi, lo, values, local_sort, *, group, rank: int, num_devi
     s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
     gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
     shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
-    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx)
+    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
     return _exchange_and_sort([hi, lo, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 

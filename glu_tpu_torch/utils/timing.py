@@ -16,12 +16,24 @@ from typing import Callable
 import torch
 
 
+def _tensors(result):
+    """Every tensor in result, through nested tuples, lists and dicts."""
+    if isinstance(result, torch.Tensor):
+        yield result
+    elif isinstance(result, (tuple, list, dict)):
+        for item in result.values() if isinstance(result, dict) else result:
+            yield from _tensors(item)
+
+
 def measure_elapsed_time(callback: Callable[[], object], device=None) -> tuple[int, object]:
     """Run `callback`, returning (elapsed nanoseconds, result).
 
     On a CUDA `device` the time is the device time between two CUDA events
     recorded around the callback on the current stream, read after a
-    synchronize. Otherwise it is host wall-clock time.
+    synchronize. Otherwise it is host wall-clock time up to the end of the
+    callback's device work: the device of every CUDA tensor in the result
+    (through nested tuples, lists and dicts) is synchronized before the
+    clock stops, as the JAX function blocks on its result.
     """
     device = torch.device("cpu") if device is None else torch.device(device)
     if device.type == "cuda":
@@ -35,6 +47,8 @@ def measure_elapsed_time(callback: Callable[[], object], device=None) -> tuple[i
             return int(start.elapsed_time(end) * 1e6), result
     start_ns = time.perf_counter_ns()
     result = callback()
+    for dev in {t.device for t in _tensors(result) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
     return time.perf_counter_ns() - start_ns, result
 
 

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA GPU (marker `cuda`): each hand-written kernel
 (glu_tpu_torch/csrc/*.cu) against its plain torch version on the card, the
 whole sort against one stable torch.sort, the reduce and scan entry
-points against their "torch" backend, and the distributed layer on a
-1-rank NCCL group against the single-card calls. Integers bit for bit; floats at
+points against their "torch" backend, the distributed layer on a
+1-rank NCCL group against the single-card calls, and its bucket kernel KB
+against its plain version at chip_smoke.py phase 11's shapes. Integers bit for bit; floats at
 rtol 1e-4, atol 1e-3 (sums are taken in another order). A CUDA kernel has no
 CPU mode, so they skip where torch.cuda.is_available() is false. This file
 imports no JAX; on a GPU machine without it, run
@@ -656,3 +657,124 @@ def test_distributed_tensor_must_suit_the_group(dev, nccl_group):
         with pytest.raises(GluError, match="cannot go through a group"):
             parallel.distributed_exclusive_scan(keys, group)
     dist.destroy_process_group(gloo)
+
+
+# ---------------------------------------------------------------------------
+# KB, the bucket stage of the distributed sort (csrc/bucket.cu)
+# ---------------------------------------------------------------------------
+
+_KB_N = 1 << 28  # chip_smoke.py phase 11's global array
+
+
+def _kb_words(n: int, dev, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen).view(torch.uint32)
+
+
+def _kb_splitters(words: list, world: int, samples: int = 8192) -> tuple:
+    """The splitters the distributed sort makes for a global array cut into
+    `world` shards, every rank's samples gathered in rank order."""
+    from glu_tpu_torch.parallel import dist_sort as ds
+
+    n = words[0].shape[0] // world
+    if len(words) == 1:
+        local = [ds._local_samples(words[0][r * n:(r + 1) * n], r, samples) for r in range(world)]
+        return ds._sample_splitters(torch.cat([s for s, _ in local]), torch.cat([i for _, i in local]), world)
+    local = [ds._local_samples64(words[0][r * n:(r + 1) * n], words[1][r * n:(r + 1) * n], r, samples)
+             for r in range(world)]
+    return ds._sample_splitters64(*(torch.cat([loc[j] for loc in local]) for j in range(3)), world)
+
+
+def _kb_check(shard: list, base: int, splitters: tuple) -> None:
+    """KB against its plain version, bit for bit, in one launch."""
+    from glu_tpu_torch.parallel import _cuda_bucket as cb
+
+    fn, ref = (cb.bucket_of, cb.bucket_of_ref) if len(shard) == 1 else (cb.bucket_of64, cb.bucket_of64_ref)
+    before = cb.launch_counts()["bucket_of"]
+    got = fn(*shard, base, *splitters)
+    assert cb.launch_counts()["bucket_of"] == before + 1
+    want = ref(*shard, base, *splitters)
+    assert got.dtype == torch.int32 and got.is_cuda and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["uniform", "constant"])
+def test_bucket_of_matches_plain_at_phase_11_shapes(dev, kind, world):
+    keys = _kb_words(_KB_N, dev, world)
+    if kind == "constant":
+        keys.view(torch.int32).fill_(0x5EADBEEF)  # every bucket decided by the global index
+    splitters = _kb_splitters([keys], world)
+    n = _KB_N // world
+    for r in range(world):
+        _kb_check([keys[r * n:(r + 1) * n]], r * n, splitters)
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (1, 2), (0, 3)])
+@pytest.mark.parametrize("words", [1, 2])
+def test_bucket_of_on_a_shard_at_a_4_byte_offset(dev, words, offsets):
+    # shards are slices of larger tensors: the keys (and the 64-bit form's two
+    # words, apart or at one offset) start off a 16-byte boundary, with a
+    # ragged tail
+    n = (1 << 24) - 5
+    full = [_kb_words(n + 8, dev, 7 + w) for w in range(words)]
+    splitters = _kb_splitters([f[:4 * (n // 4)] for f in full], 4)
+    _kb_check([f[off:off + n] for f, off in zip(full, offsets)], 3 * n, splitters)
+
+
+@pytest.mark.parametrize("world", [4, 2050, 4097])
+def test_bucket_of64_matches_plain(dev, world):
+    # 2^24 64-bit keys with duplicates; D - 1 splitters in shared memory and
+    # past SMEM_SPLITTERS (searched in global memory)
+    from glu_tpu_torch.parallel import _cuda_bucket as cb
+
+    n = 1 << 24
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(world)
+    hi = _kb_words(n // 8, dev, world).view(torch.int32).repeat(8)[torch.randperm(n, device=dev, generator=gen)]
+    hi, lo = hi.view(torch.uint32), _kb_words(n, dev, world + 1)
+    splitters = _kb_splitters([hi, lo], world, 8192 if world == 4 else 16)
+    assert splitters[0].shape[0] == world - 1 and (world == 4 or world - 1 > cb.SMEM_SPLITTERS)
+    q = n // world
+    for r in (0, world - 1):
+        _kb_check([hi[r * q:(r + 1) * q], lo[r * q:(r + 1) * q]], r * q, splitters)
+
+
+@pytest.mark.parametrize("world", [2049, 2050])
+def test_bucket_of_at_the_shared_memory_limit(dev, world):
+    # D - 1 = SMEM_SPLITTERS staged, one more searched in global memory
+    from glu_tpu_torch.parallel import _cuda_bucket as cb
+
+    keys = _kb_words(1 << 22, dev, world)
+    splitters = _kb_splitters([_kb_words(4096 * world, dev, 3)], world, 16)
+    assert splitters[0].shape[0] - cb.SMEM_SPLITTERS == world - 2049
+    _kb_check([keys], 1 << 40, splitters)
+
+
+def test_bucket_of_repeated_splitters(dev):
+    # fewer samples than ranks: 3 samples for 8 ranks give 7 splitters with repeats
+    from glu_tpu_torch.parallel import dist_sort as ds
+
+    keys = _kb_words(1 << 24, dev, 11)
+    few = _kb_words(3, dev, 12)
+    splitters = ds._sample_splitters(few, torch.tensor([5, 1 << 20, 3 << 22], dtype=torch.int64, device=dev), 8)
+    assert len({(int(k), int(i)) for k, i in zip(splitters[0].view(torch.int32), splitters[1])}) == 3
+    _kb_check([keys], 0, splitters)
+
+
+def test_measure_elapsed_time_without_device_covers_the_device_work(dev):
+    # timed without `device`, the host clock stops after the sort's device
+    # work: at least 0.9 of the same call's CUDA-event time
+    from glu_tpu_torch.utils.timing import measure_elapsed_time
+
+    keys, vals = _kb_words(1 << 26, dev, 1), torch.arange(1 << 26, dtype=torch.int32, device=dev).view(torch.uint32)
+    sort = lambda: glu_tpu_torch.radix_sort(keys, vals, backend="cuda")  # noqa: E731
+    sort()
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(5):
+        host.append(measure_elapsed_time(sort)[0])
+        torch.cuda.synchronize()
+        events.append(measure_elapsed_time(sort, dev)[0])
+    assert sorted(host)[2] >= 0.9 * sorted(events)[2], (host, events)

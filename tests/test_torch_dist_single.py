@@ -105,7 +105,7 @@ def test_each_module_keeps_its_own_state(single, monkeypatch, module, tile):
 
 def test_carries_the_kernel_sources(single):
     files = {f.name: f.read_bytes().decode() for f in sorted(_build._CSRC.glob("*.cu*"))}
-    assert set(files) == {"fold.cuh", "lookback.cuh", "radix_sort.cu", "reduce.cu", "scan.cu"}
+    assert set(files) == {"bucket.cu", "fold.cuh", "lookback.cuh", "radix_sort.cu", "reduce.cu", "scan.cu"}
     assert single._CUDA_SOURCES == files == _build.kernel_sources() == single._build.kernel_sources()
     assert not single._build._CSRC.exists()  # the single file reads no csrc/ directory
 
@@ -150,9 +150,9 @@ def test_build_compiles_the_staged_sources(single, monkeypatch, tmp_path, which,
     else:
         so, _, log = build.build()
         assert so == build._library_path() and "boom" in log
-        assert seen[-1][0] == ["radix_sort.o", "reduce.o", "scan.o"]  # the link
+        assert seen[-1][0] == ["bucket.o", "radix_sort.o", "reduce.o", "scan.o"]  # the link
         compiles, left = seen[:-1], sorted([so.name, so.with_suffix(".log").name])
-    assert [inputs for inputs, _ in compiles] == [["radix_sort.cu"], ["reduce.cu"], ["scan.cu"]]
+    assert [inputs for inputs, _ in compiles] == [["bucket.cu"], ["radix_sort.cu"], ["reduce.cu"], ["scan.cu"]]
     assert all(staged == _build.kernel_sources() for _, staged in compiles)
     assert sorted(p.name for p in tmp_path.iterdir()) == left
 

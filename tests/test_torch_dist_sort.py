@@ -268,13 +268,13 @@ def _jax_stages(keys, world_size, num_samples, wide=False):
     return [np.asarray(o) for o in fn(*(jnp.asarray(k) for k in keys))]
 
 
-def _port_stages(keys, world_size, num_samples, wide=False):
+def _port_stages(keys, world_size, num_samples, wide, backend):
     shards = [[from_numpy(s, "cpu") for s in np.split(k, world_size)] for k in keys]
     local = [(tds._local_samples64 if wide else tds._local_samples)(*(s[r] for s in shards), r, num_samples)
              for r in range(world_size)]
     gathered = [torch.cat([loc[i] for loc in local]) for i in range(len(local[0]))]
     splitters = (tds._sample_splitters64 if wide else tds._sample_splitters)(*gathered, world_size)
-    buckets = [(tds._bucket_of64 if wide else tds._bucket_of)(*(s[r] for s in shards), r, *splitters)
+    buckets = [(tds._bucket_of64 if wide else tds._bucket_of)(*(s[r] for s in shards), r, *splitters, backend)
                for r in range(world_size)]
     return [to_numpy(s) for s in splitters] + [to_numpy(torch.cat(buckets))]
 
@@ -294,10 +294,11 @@ def test_splitters_and_buckets_match_jax(world_size, kind, wide):
         keys = [np.full(n, 0x80000001, np.uint32) for _ in range(words)]
     num_samples = 300  # a stride of 14 over shards of 4,096, the last sample short of the end
     want = _jax_stages(keys, world_size, num_samples, wide)
-    got = _port_stages(keys, world_size, num_samples, wide)
-    for i, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64), err_msg=f"stage output {i}")
-    assert got[-1].dtype == np.int32
+    for backend in PORT_BACKENDS:  # KB's wrapper ("cuda"; its plain version on the CPU) and "torch"
+        got = _port_stages(keys, world_size, num_samples, wide, backend)
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64), err_msg=f"{backend} output {i}")
+        assert got[-1].dtype == np.int32
     # the buckets are balanced: index tiebreaks split even a constant array
     assert np.bincount(got[-1], minlength=world_size).max() <= 2 * n // world_size
 

@@ -4,6 +4,7 @@ same inputs through both packages, exact results."""
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -126,6 +127,23 @@ def test_timing_cpu():
     for v in (1.5e9, 2.5e6, 3.25e3, 500):
         assert ns_to_human_string(v) == jutils.timing.ns_to_human_string(v)
     assert StopWatch().elapsed_ns() >= 0
+
+
+def test_timing_nested_result_without_device(monkeypatch):
+    # device=None: the clock covers the callback and stops after the device
+    # work of every CUDA tensor in the result, found through nested tuples,
+    # lists and dicts; CPU tensors need no synchronize
+    from glu_tpu_torch.utils import timing
+
+    def nested():
+        time.sleep(0.03)
+        return (torch.ones(2), [torch.zeros(3), {"a": torch.arange(4), "b": (5, "text")}], None)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("synchronized a CPU result"))
+    ns, result = timing.measure_elapsed_time(nested)
+    assert ns >= 30_000_000
+    assert [t.tolist() for t in timing._tensors(result)] == [[1.0, 1.0], [0.0, 0.0, 0.0], [0, 1, 2, 3]]
+    assert result[1][1]["b"] == (5, "text") and result[2] is None
 
 
 def test_import_has_no_jax():

@@ -16,8 +16,10 @@ the scans of n u32 (SUM). Then timings, CUDA events (the host clock on
 the CPU) between barriers, the median over the calls of the slowest rank:
 the distributed sort of n pairs with 1 and 2 chunks against radix_sort of
 the whole array on one rank's device, and the sort's stages (_bucket_of,
-the partition, the exchange of the two streams and the local sort),
-each beside its bytes over 3.35 TB/s. The last line is one JSON object.
+KB on the card, whose buckets must equal its plain version's bit for bit
+on every rank; the partition, the exchange of the two streams and the
+local sort), each beside its bytes over 3.35 TB/s. The last line is one
+JSON object.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def _worker(rank: int, world: int, store: str, args, results) -> None:
 
     import glu_tpu_torch as glu
     from glu_tpu_torch import parallel
+    from glu_tpu_torch.parallel import _cuda_bucket as cb
     from glu_tpu_torch.parallel import dist_sort as ds
 
     on_card = args.device == "cuda"
@@ -54,12 +57,12 @@ def _worker(rank: int, world: int, store: str, args, results) -> None:
     dist.init_process_group("nccl" if on_card else "gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
-        results.put((rank, _run(torch, dist, glu, parallel, ds, rank, world, dev, args)))
+        results.put((rank, _run(torch, dist, glu, parallel, cb, ds, rank, world, dev, args)))
     finally:
         dist.destroy_process_group()
 
 
-def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> dict:
+def _run(torch, dist, glu, parallel, cb, ds, rank: int, world: int, dev, args) -> dict:
     on_card = dev.type == "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -78,7 +81,7 @@ def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> di
         for i, (g, w) in enumerate(zip(got, want)):
             g, w = g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)
             if g.shape != w.shape or not torch.equal(g, w):
-                raise AssertionError(f"rank {rank} {label}: output {i} differs from the single-card call")
+                raise AssertionError(f"rank {rank} {label}: output {i} differs from its reference")
 
     def my_slice(counts: torch.Tensor) -> slice:
         start = int(counts[:rank].sum())
@@ -105,7 +108,7 @@ def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> di
             raise AssertionError(f"rank {rank} {label}: counts {counts.tolist()}, overflow {overflow.tolist()}")
         want = single_fn(*full, backend="cuda", **{k: v for k, v in kw.items() if k != "pipeline_chunks"})
         same(label, got[:-2], [w[my_slice(counts)] for w in want])
-        checked.append(f"sort {label}: counts {counts.tolist()}")
+        checked.append(f"sort {label} against its slice of the single-card call: counts {counts.tolist()}")
     x = u32(words(n))
     for label, dist_fn, single_fn in (("reduce", parallel.distributed_reduce, glu.reduce),
                                       ("exclusive_scan", parallel.distributed_exclusive_scan, glu.exclusive_scan),
@@ -113,7 +116,7 @@ def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> di
         got = dist_fn(x[mine], backend="cuda")
         want = single_fn(x, backend="cuda")
         same(label, [got], [want if label == "reduce" else want[mine]])
-        checked.append(f"{label} of {n} u32")
+        checked.append(f"{label} of {n} u32 against its slice of the single-card call")
     del f32, u64, x
 
     # -- timings --------------------------------------------------------------------
@@ -150,7 +153,9 @@ def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> di
     samples, idx = ds._local_samples(k_mine, rank, 8192)
     splitters = ds._sample_splitters(parallel.dist_primitives._all_gather(samples, None).reshape(-1),
                                      parallel.dist_primitives._all_gather(idx, None).reshape(-1), world)
-    bucket = ds._bucket_of(k_mine, rank, *splitters)
+    bucket = ds._bucket_of(k_mine, rank, *splitters, "cuda")
+    same("bucket_of (KB) against bucket_of_ref", [bucket], [cb.bucket_of_ref(k_mine, rank * n_local, *splitters)])
+    checked.append(f"bucket_of (KB) of {n_local} keys a rank against bucket_of_ref")
     (pk, pv), counts, _ = ds._partition_by_bucket(bucket, [k_mine, v_mine], world, "cuda")
     rows = parallel.dist_primitives._all_gather(counts, None).cpu()
     send, recv = rows[rank].tolist(), rows[:, rank].tolist()
@@ -161,7 +166,7 @@ def _run(torch, dist, glu, parallel, ds, rank: int, world: int, dev, args) -> di
         dist.all_to_all_single(out_v, pv.view(torch.int32), recv, send)
 
     stages = {
-        "_bucket_of": (median_ms(lambda: ds._bucket_of(k_mine, rank, *splitters)), 8 * n_local),
+        "_bucket_of": (median_ms(lambda: ds._bucket_of(k_mine, rank, *splitters, "cuda")), 8 * n_local),
         "_partition_by_bucket": (median_ms(lambda: ds._partition_by_bucket(bucket, [k_mine, v_mine], world, "cuda")),
                                  24 * n_local),
         "exchange (2 streams, all_to_all_single)": (median_ms(exchange), 8 * (n_local + sum(recv))),
@@ -212,7 +217,7 @@ def main() -> int:
     by_rank = dict(results.get() for _ in range(args.world))
     print(f"device: {device}")
     for line in by_rank[0]["checked"]:
-        print(f"bit-identical on every rank to its slice of the single-card call: {line}")
+        print(f"bit-identical on every rank: {line}")
     for label, ms in by_rank[0]["timings_ms"].items():
         print(f"time {label} ({args.n} pairs, {args.world} ranks; the slowest rank, median of {REPS}): {ms:.4f} ms "
               f"[{device}]")
