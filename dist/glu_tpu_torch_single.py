@@ -528,6 +528,7 @@ import ctypes
 import torch
 
 from ..utils.errors import check_argument, check_state, fail
+from ..utils.timing import start, stop
 
 
 def round_up(n: int, m: int) -> int:
@@ -576,14 +577,18 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args, stream: 
     """Call the library's entry `fn_name` with `args` and `stream` (by
     default the current stream of `device`), with `device` current; raise
     with CUDA's message if the launch was refused. The device is switched
-    only when it is not the current one already."""
-    if stream is None:
-        stream = current_stream(device)
-    if device.index == torch.cuda.current_device():
-        err = getattr(lib, fn_name)(*args, stream)
-    else:
-        with torch.cuda.device(device):
+    only when it is not the current one already. A span glu.launch."""
+    opened = start("glu.launch")
+    try:
+        if stream is None:
+            stream = current_stream(device)
+        if device.index == torch.cuda.current_device():
             err = getattr(lib, fn_name)(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = getattr(lib, fn_name)(*args, stream)
+    finally:
+        stop(opened)
     if err != 0:
         fail("%s failed: %s (cudaError %d)", fn_name, lib.glu_error_string(err).decode(), err)
 ''',
@@ -622,6 +627,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 from ._common import cdiv, current_stream, kernels, launch, on_cuda
 from .reduce import ReduceOperator, _fold, _from_work, _to_work, _work_identity, check_kernel_dtype
 
@@ -706,25 +712,28 @@ def reduce_partitions(x: torch.Tensor, op: ReduceOperator) -> torch.Tensor:
     of a contiguous (P, L) tensor, or each component of each row of a (P, L,
     C) one, under `op`, in one launch. Returns (P,) or (P, C) of x's dtype."""
     global reduce_launches, _lib
-    check_partitions(x, components=True)
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    if not on_cuda(x):
-        return reduce_partitions_ref(x, op)
-    if _lib is None:
-        _lib = kernels(fold_tile=TILE)
-    shape = x.shape
-    parts, length = shape[0], shape[1]
-    comps = shape[2] if len(shape) == 3 else 1
-    ctas = ctas_per_partition(parts, length * comps)
-    dev = x.device
-    stream = current_stream(dev)
-    _, tickets, partials = _scratch_for(dev, stream) if ctas > 1 else (None, None, None)
-    out = x.new_empty(shape[:1] + shape[2:])
-    launch(_lib, "glu_reduce", dev, x.data_ptr(), parts, length, comps, ctas, DTYPE_CODES[x.dtype], op.value,
-           tickets, partials, out.data_ptr(), stream=stream)
-    reduce_launches += 1
-    return out
-''',
+    opened = start("glu.engine.k5")
+    try:
+        check_partitions(x, components=True)
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        if not on_cuda(x):
+            return reduce_partitions_ref(x, op)
+        if _lib is None:
+            _lib = kernels(fold_tile=TILE)
+        shape = x.shape
+        parts, length = shape[0], shape[1]
+        comps = shape[2] if len(shape) == 3 else 1
+        ctas = ctas_per_partition(parts, length * comps)
+        dev = x.device
+        stream = current_stream(dev)
+        _, tickets, partials = _scratch_for(dev, stream) if ctas > 1 else (None, None, None)
+        out = x.new_empty(shape[:1] + shape[2:])
+        launch(_lib, "glu_reduce", dev, x.data_ptr(), parts, length, comps, ctas, DTYPE_CODES[x.dtype], op.value,
+               tickets, partials, out.data_ptr(), stream=stream)
+        reduce_launches += 1
+        return out
+    finally:
+        stop(opened)''',
     'glu_tpu_torch.ops._cuda_scan': r'''"""K4: the exclusive-scan kernel, a hand-written Hopper single-pass scan
 with decoupled look-back (csrc/scan.cu, with the block scan of
 csrc/fold.cuh and the status words of csrc/lookback.cuh).
@@ -767,6 +776,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 from ._cuda_reduce import DTYPE_CODES, check_partitions
 from .reduce import (
@@ -850,21 +860,24 @@ def exclusive_scan_partitions(x: torch.Tensor, op: ReduceOperator) -> torch.Tens
     of each row of a contiguous (P, L) tensor under `op`, in one launch.
     Returns a new (P, L) tensor of x's dtype."""
     global scan_launches
-    check_partitions(x)
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    if not on_cuda(x):
-        return exclusive_scan_partitions_ref(x, op)
-    parts, length = x.shape
-    tiles = parts * cdiv(length, TILE)
-    check_argument(tiles < 2**31, "too many tiles: %d partitions of %d", parts, length)
-    lib, dev = kernels(scan_tile=TILE), x.device
-    out = torch.empty_like(x)
-    status = torch.zeros(status_words(tiles, x.dtype), dtype=torch.int64, device=dev)
-    launch(lib, "glu_scan_pass", dev, x.data_ptr(), out.data_ptr(), parts, length, DTYPE_CODES[x.dtype], op.value,
-           status.data_ptr())
-    scan_launches += 1
-    return out
-''',
+    opened = start("glu.engine.k4")
+    try:
+        check_partitions(x)
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        if not on_cuda(x):
+            return exclusive_scan_partitions_ref(x, op)
+        parts, length = x.shape
+        tiles = parts * cdiv(length, TILE)
+        check_argument(tiles < 2**31, "too many tiles: %d partitions of %d", parts, length)
+        lib, dev = kernels(scan_tile=TILE), x.device
+        out = torch.empty_like(x)
+        status = torch.zeros(status_words(tiles, x.dtype), dtype=torch.int64, device=dev)
+        launch(lib, "glu_scan_pass", dev, x.data_ptr(), out.data_ptr(), parts, length, DTYPE_CODES[x.dtype], op.value,
+               status.data_ptr())
+        scan_launches += 1
+        return out
+    finally:
+        stop(opened)''',
     'glu_tpu_torch.ops._cuda_sort': r'''"""CUDA radix-sort engine: hand-written Hopper kernels of the stable LSD sort.
 
 Counterpart of glu_tpu/ops/_pallas_sort.py with the same contract: a stable
@@ -898,7 +911,8 @@ in one call to the library.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
-and a plain torch version with the same contract (`*_ref`). A wrapper given
+inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
+plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises. The plain version of a onesweep pass is built from the
 stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
@@ -913,7 +927,7 @@ import functools
 import torch
 
 from ..utils.errors import check_argument
-from ..utils.log import vlog
+from ..utils.timing import start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
 FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
@@ -1043,15 +1057,20 @@ def digit_histograms(keys: torch.Tensor, groups) -> torch.Tensor:
     BINS)) is the number of keys whose digit of the bits groups[p] (1-8 of
     them, LSB-first) is d."""
     global digit_histograms_launches
-    _check_streams(keys, [])
-    groups = [_check_positions(g, MAX_FIELD_BITS) for g in groups]
-    check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
-    if not on_cuda(keys):
-        return digit_histograms_ref(keys, groups)
-    hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
-    _launch("glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(), *_plan_args(groups), hist.data_ptr())
-    digit_histograms_launches += 1
-    return hist
+    opened = start("glu.engine.onesweep")
+    try:
+        _check_streams(keys, [])
+        groups = [_check_positions(g, MAX_FIELD_BITS) for g in groups]
+        check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
+        if not on_cuda(keys):
+            return digit_histograms_ref(keys, groups)
+        hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
+        _launch("glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(), *_plan_args(groups),
+                hist.data_ptr())
+        digit_histograms_launches += 1
+        return hist
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -1121,27 +1140,32 @@ def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Ten
     output: an exclusive cumsum of digit_histograms' row for this pass.
     Returns (keys, list of payloads)."""
     global onesweep_pass_launches
-    streams = _check_streams(keys, payloads)
-    positions = _check_positions(positions, MAX_FIELD_BITS)
-    shape = (1 << len(positions),)
-    check_argument(
-        digit_base.dtype == torch.int32 and digit_base.is_contiguous() and tuple(digit_base.shape) == shape,
-        "digit_base must be contiguous int32 of shape %s, got %s %s", shape, digit_base.dtype,
-        tuple(digit_base.shape),
-    )
-    check_argument(digit_base.device == keys.device, "digit_base is on %s, keys on %s", digit_base.device, keys.device)
-    if not on_cuda(keys):
-        return onesweep_pass_ref(keys, list(payloads), positions, digit_base)
-    n = keys.numel()
-    outs = [torch.empty_like(s) for s in streams]
-    # a status word per (tile, bin), then the tile counter: zero at launch
-    status = torch.zeros(cdiv(n, TILE) * BINS + 1, dtype=torch.int64, device=keys.device)
-    _launch(
-        "glu_onesweep_pass", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
-        _ints(positions), len(positions), digit_base.data_ptr(), status.data_ptr(),
-    )
-    onesweep_pass_launches += 1
-    return outs[0], outs[1:]
+    opened = start("glu.engine.onesweep")
+    try:
+        streams = _check_streams(keys, payloads)
+        positions = _check_positions(positions, MAX_FIELD_BITS)
+        shape = (1 << len(positions),)
+        check_argument(
+            digit_base.dtype == torch.int32 and digit_base.is_contiguous() and tuple(digit_base.shape) == shape,
+            "digit_base must be contiguous int32 of shape %s, got %s %s", shape, digit_base.dtype,
+            tuple(digit_base.shape),
+        )
+        check_argument(digit_base.device == keys.device, "digit_base is on %s, keys on %s", digit_base.device,
+                       keys.device)
+        if not on_cuda(keys):
+            return onesweep_pass_ref(keys, list(payloads), positions, digit_base)
+        n = keys.numel()
+        outs = [torch.empty_like(s) for s in streams]
+        # a status word per (tile, bin), then the tile counter: zero at launch
+        status = torch.zeros(cdiv(n, TILE) * BINS + 1, dtype=torch.int64, device=keys.device)
+        _launch(
+            "glu_onesweep_pass", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
+            _ints(positions), len(positions), digit_base.data_ptr(), status.data_ptr(),
+        )
+        onesweep_pass_launches += 1
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -1212,20 +1236,26 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
     MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
     checks and timings give. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
-    streams = _check_streams(keys, payloads)
-    positions, plan = _single_tile_plan(tuple(positions))
-    n = keys.numel()
-    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
-    ctas = single_tile_ctas(n) if ctas is None else ctas
-    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
-                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER, SLICE_MAX,
-                   n, ctas)
-    if not on_cuda(keys):
-        return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
-    outs = [torch.empty_like(s) for s in streams]
-    _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan, ctas)
-    sort_single_tile_launches += 1
-    return outs[0], outs[1:]
+    opened = start("glu.engine.k3")
+    try:
+        streams = _check_streams(keys, payloads)
+        positions, plan = _single_tile_plan(tuple(positions))
+        n = keys.numel()
+        check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX,
+                       n)
+        ctas = single_tile_ctas(n) if ctas is None else ctas
+        check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                       "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
+                       SLICE_MAX, n, ctas)
+        if not on_cuda(keys):
+            return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
+        outs = [torch.empty_like(s) for s in streams]
+        _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan,
+                ctas)
+        sort_single_tile_launches += 1
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -1262,9 +1292,7 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     if not positions or n <= 1:
         return keys, payloads
     if n <= SINGLE_TILE_MAX:
-        vlog("radix_sort n=%d: single tile, streams=%d bits=%d", n, 1 + len(payloads), len(positions))
         return sort_single_tile(keys, payloads, positions)
-    vlog("radix_sort n=%d: tiles=%d streams=%d bits=%d", n, cdiv(n, TILE), 1 + len(payloads), len(positions))
     return onesweep_sort(keys, payloads, positions)
 
 
@@ -1295,22 +1323,28 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
             # rebinding at once frees each pass's input as soon as it is consumed
             keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
         return keys, payloads
-    streams = _check_streams(keys, payloads)
-    groups, plan = _onesweep_plan(tuple(positions))
-    n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
-    outs = [torch.empty_like(s) for s in streams]
-    # one allocation: the scratch streams (more than one pass), then the
-    # work words from a 256-byte boundary (an allocation's own start)
-    tmp_words = -(-len(streams) * n // 64) * 64 if npasses > 1 else 0
-    buf = torch.empty(tmp_words + lib.glu_onesweep_sort_work_words(n, npasses), dtype=torch.int32,
-                      device=keys.device)
-    base = buf.data_ptr()
-    tmp = (ctypes.c_void_p * len(streams))(*[base + 4 * n * i for i in range(len(streams))]) if npasses > 1 else None
-    launch(lib, "glu_onesweep_sort", keys.device, _pointers(streams), _pointers(outs), tmp, len(streams), n, *plan,
-           base + 4 * tmp_words)
-    digit_histograms_launches += 1
-    onesweep_pass_launches += npasses
-    return outs[0], outs[1:]
+    opened = start("glu.engine.onesweep")
+    try:
+        streams = _check_streams(keys, payloads)
+        groups, plan = _onesweep_plan(tuple(positions))
+        n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
+        outs = [torch.empty_like(s) for s in streams]
+        # one allocation: the scratch streams (more than one pass), then the
+        # work words from a 256-byte boundary (an allocation's own start)
+        tmp_words = -(-len(streams) * n // 64) * 64 if npasses > 1 else 0
+        buf = torch.empty(tmp_words + lib.glu_onesweep_sort_work_words(n, npasses), dtype=torch.int32,
+                          device=keys.device)
+        base = buf.data_ptr()
+        tmp = None
+        if npasses > 1:
+            tmp = (ctypes.c_void_p * len(streams))(*[base + 4 * n * i for i in range(len(streams))])
+        launch(lib, "glu_onesweep_sort", keys.device, _pointers(streams), _pointers(outs), tmp, len(streams), n,
+               *plan, base + 4 * tmp_words)
+        digit_histograms_launches += 1
+        onesweep_pass_launches += npasses
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)
 ''',
     'glu_tpu_torch.ops._segments': r'''"""Validation of CUB-style segment boundary arrays (counterpart of
 glu_tpu/ops/_segments.py:18-36).
@@ -1327,11 +1361,14 @@ import numpy as np
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import count
 
 
 def validate_offsets(offsets, n: int, device) -> tuple[torch.Tensor, int]:
     """Returns (the boundaries as an int64 tensor on `device`, S).
-    `offsets` may be a tensor on any device, a numpy array or a list."""
+    `offsets` may be a tensor on any device, a numpy array or a list. Each
+    crossing between the card and the host waits for the card's stream:
+    the boundaries' fetch from a card and their copy onto one."""
     offs = offsets if isinstance(offsets, torch.Tensor) else torch.from_numpy(np.asarray(offsets))
     check_argument(offs.ndim == 1, "offsets must be 1-D")
     check_argument(
@@ -1344,7 +1381,9 @@ def validate_offsets(offsets, n: int, device) -> tuple[torch.Tensor, int]:
     check_argument(int(h[0]) == 0, "offsets[0] must be 0, got %d", int(h[0]))
     check_argument(int(h[-1]) == n, "offsets[-1] (%d) must equal the array length (%d)", int(h[-1]), n)
     check_argument(bool((h[1:] >= h[:-1]).all()), "offsets must be nondecreasing")
-    return h.to(device), num_segments
+    out = h.to(device)
+    count("host_syncs.offsets", int(offs.is_cuda) + int(out.is_cuda))
+    return out, num_segments
 ''',
     'glu_tpu_torch.ops.backend': r'''"""Backend selection (counterpart of glu_tpu/ops/backend.py).
 
@@ -1432,8 +1471,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from ..utils.buffers import DeviceBuffer, default_device
 from ..utils.errors import check_argument
+from ..utils.timing import start_call, stop
 from .backend import resolve_backend
 
 RADIX_BITS = 4  # digit width (reference RadixSort.hpp:303: u_radix_shift = step << 2)
@@ -1539,6 +1580,8 @@ def _key_envelope(words: torch.Tensor, backend: str) -> torch.Tensor:
     first & ~diff."""
     dev = words.device
     if words.numel() == 0:
+        if dev.type == "cuda":
+            timing.count("host_syncs.bits_auto")  # the identity copied onto the card waits for the stream
         return torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64, device=dev)
     if backend == "torch" or words.numel() == 1:
         d = words ^ words[0]
@@ -1572,7 +1615,10 @@ def _varying_bits(words: torch.Tensor, backend: str) -> tuple:
     host, which synchronises it with the device."""
     if words.numel() <= 1:
         return ()
-    return _envelope_positions(*_key_envelope(words, backend).tolist())
+    with timing.span("glu.bits_auto"):
+        envelope = _key_envelope(words, backend).tolist()
+        timing.count("host_syncs.bits_auto")
+    return _envelope_positions(*envelope)
 
 
 def varying_key_bits(keys: torch.Tensor) -> tuple:
@@ -1584,9 +1630,13 @@ def varying_key_bits(keys: torch.Tensor) -> tuple:
     captured in a CUDA graph). Feed the result to radix_sort(..., bits=...),
     or pass bits="auto" to fuse the two steps, to sort in ceil(len(bits)/8)
     onesweep passes instead of 4."""
-    check_argument(keys.dim() == 1, "keys must be 1-D")
-    check_argument(keys.dtype == torch.uint32, "keys must be uint32, got %s", keys.dtype)
-    return _varying_bits(keys.view(torch.int32).contiguous(), resolve_backend(None, keys))
+    call = start_call("glu.varying_key_bits")
+    try:
+        check_argument(keys.dim() == 1, "keys must be 1-D")
+        check_argument(keys.dtype == torch.uint32, "keys must be uint32, got %s", keys.dtype)
+        return _varying_bits(keys.view(torch.int32).contiguous(), resolve_backend(None, keys))
+    finally:
+        stop(call)
 
 
 def _norm_steps(num_steps) -> int:
@@ -1693,28 +1743,36 @@ def radix_sort(
     card's cost model (ops/router.py; on a CPU tensor "cuda"). The route is
     chosen after bits="auto" has found the bits to sort.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    check_argument(
-        not (descending and num_steps not in (0, None, NUM_PASSES)),
-        "descending requires the full sort (num_steps=0)",
-    )
-    if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
-        return keys, values
-    out_k, (out_v,) = _sort_words(
-        _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
-    )
-    return _u32(out_k), _u32(out_v)
+    call = start_call("glu.radix_sort")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        check_argument(
+            not (descending and num_steps not in (0, None, NUM_PASSES)),
+            "descending requires the full sort (num_steps=0)",
+        )
+        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
+            return keys, values
+        out_k, (out_v,) = _sort_words(
+            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
+        )
+        return _u32(out_k), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_keys(keys: torch.Tensor, num_steps: int = 0, *, backend: str | None = None, bits=None):
     """Stably sort u32 keys only (the reference mandates values,
     README.md:88-89; keys-only is a natural extension with the same
     kernels). See radix_sort for `num_steps` and `bits`."""
-    _check_inputs(keys, torch.uint32)
-    if keys.shape[0] <= 1:
-        return keys
-    out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
-    return _u32(out_k)
+    call = start_call("glu.radix_sort_keys")
+    try:
+        _check_inputs(keys, torch.uint32)
+        if keys.shape[0] <= 1:
+            return keys
+        out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
+        return _u32(out_k)
+    finally:
+        stop(call)
 
 
 def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backend: str | None = None, bits=None):
@@ -1727,12 +1785,16 @@ def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backen
     one write of every stream a pass); past 7 the keys carry an index
     payload and every payload is gathered by it once. See radix_sort for
     `num_steps`, `bits` and when inputs come back as they are."""
-    payloads = tuple(payloads)
-    _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
-    if keys.shape[0] <= 1:
-        return keys, payloads
-    out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
-    return _u32(out_k), tuple(_u32(p) for p in outs)
+    call = start_call("glu.radix_sort_multi")
+    try:
+        payloads = tuple(payloads)
+        _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
+        if keys.shape[0] <= 1:
+            return keys, payloads
+        out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
+        return _u32(out_k), tuple(_u32(p) for p in outs)
+    finally:
+        stop(call)
 
 
 def radix_argsort(keys: torch.Tensor, *, backend: str | None = None, descending: bool = False, bits=None):
@@ -1742,13 +1804,17 @@ def radix_argsort(keys: torch.Tensor, *, backend: str | None = None, descending:
     permutation" caller otherwise writes by hand (the reference has no
     argsort; test/radix_sort_tests.cpp:111-141 sorts the user's own iota).
     Supports descending= and bits= as radix_sort does."""
-    _check_inputs(keys, torch.uint32)
-    n = keys.shape[0]
-    check_argument(n < (1 << 32), "argsort indices exceed uint32")
-    iota = _u32(torch.arange(n, dtype=torch.int32, device=keys.device))
-    if n <= 1:
-        return keys, iota
-    return radix_sort(keys, iota, backend=backend, descending=descending, bits=bits)
+    call = start_call("glu.radix_argsort")
+    try:
+        _check_inputs(keys, torch.uint32)
+        n = keys.shape[0]
+        check_argument(n < (1 << 32), "argsort indices exceed uint32")
+        iota = _u32(torch.arange(n, dtype=torch.int32, device=keys.device))
+        if n <= 1:
+            return keys, iota
+        return radix_sort(keys, iota, backend=backend, descending=descending, bits=bits)
+    finally:
+        stop(call)
 
 
 def _f32_to_sortable(k: torch.Tensor) -> torch.Tensor:
@@ -1778,14 +1844,18 @@ def radix_sort_f32(
     with NaNs at the ends by their sign bit. The keys are compared as bit
     patterns, never as floats. `descending` and `bits` refer to the
     TRANSFORMED keys (see radix_sort)."""
-    _check_inputs(keys, torch.float32, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    out_k, (out_v,) = _sort_words(
-        _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
-        bits=bits,
-    )
-    return _sortable_to_f32(out_k), _u32(out_v)
+    call = start_call("glu.radix_sort_f32")
+    try:
+        _check_inputs(keys, torch.float32, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        out_k, (out_v,) = _sort_words(
+            _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
+            bits=bits,
+        )
+        return _sortable_to_f32(out_k), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_i32(
@@ -1802,12 +1872,16 @@ def radix_sort_i32(
     Signed order rides the u32 engine through the sign-bit flip (an
     order-preserving bijection i32 -> u32: INT32_MIN maps to 0, INT32_MAX to
     UINT32_MAX). `descending` and `bits` refer to the flipped keys."""
-    _check_inputs(keys, torch.int32, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
-                                  bits=bits)
-    return out_k ^ _SIGN, _u32(out_v)
+    call = start_call("glu.radix_sort_i32")
+    try:
+        _check_inputs(keys, torch.int32, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
+                                      bits=bits)
+        return out_k ^ _SIGN, _u32(out_v)
+    finally:
+        stop(call)
 
 
 def _sort_u64_words(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, bits, backend):
@@ -1860,11 +1934,15 @@ def radix_sort_u64_parts(
     hi word); explicit positions are a PAIR (hi_positions, lo_positions).
     The inputs are not modified; where no bit of either word is sorted they
     come back as they are."""
-    _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
-    if keys_hi.shape[0] <= 1:
-        return keys_hi, keys_lo, values
-    out_hi, out_lo, out_v = _sort_u64_words(_words(keys_hi), _words(keys_lo), values, bits, backend)
-    return _u32(out_hi), _u32(out_lo), _u32(out_v)
+    call = start_call("glu.radix_sort_u64_parts")
+    try:
+        _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
+        if keys_hi.shape[0] <= 1:
+            return keys_hi, keys_lo, values
+        out_hi, out_lo, out_v = _sort_u64_words(_words(keys_hi), _words(keys_lo), values, bits, backend)
+        return _u32(out_hi), _u32(out_lo), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, *, backend: str | None = None, bits=None):
@@ -1873,14 +1951,19 @@ def radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, *, backend: str | N
     per-word bits= pruning. The words are split and joined as the int32
     pairs the keys are made of (torch implements few operations on uint64),
     one copy each way."""
-    _check_inputs(keys, torch.uint64, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
-    out_hi, out_lo, out_v = _sort_u64_words(pairs[:, 1].contiguous(), pairs[:, 0].contiguous(), values, bits, backend)
-    out = torch.empty_like(pairs)
-    out[:, 0], out[:, 1] = out_lo, out_hi
-    return out.view(torch.uint64).view(-1), _u32(out_v)
+    call = start_call("glu.radix_sort_u64")
+    try:
+        _check_inputs(keys, torch.uint64, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
+        hi, lo = pairs[:, 1].contiguous(), pairs[:, 0].contiguous()
+        out_hi, out_lo, out_v = _sort_u64_words(hi, lo, values, bits, backend)
+        out = torch.empty_like(pairs)
+        out[:, 0], out[:, 1] = out_lo, out_hi
+        return out.view(torch.uint64).view(-1), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def _seg_bits(num_segments: int) -> tuple:
@@ -1919,20 +2002,24 @@ def radix_sort_segmented(
     the int64 of (segment id, key). bits= prunes the KEY sort (see
     radix_sort); the segment-id sort is already minimal.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    n = keys.shape[0]
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _radix_sort_segmented_offsets(keys, values, offsets, backend, bits)
-    p = int(num_partitions)
-    check_argument(p >= 1, "num_partitions must be >= 1")
-    check_argument(n % p == 0, "count (%d) must divide into %d partitions", n, p)
-    if p == 1:
-        return radix_sort(keys, values, backend=backend, bits=bits)
-    if n <= 1:
-        return keys, values
-    seg = torch.arange(n, dtype=torch.int32, device=keys.device) // (n // p)
-    return _segmented_sort(keys, values, seg, p, backend, bits)
+    call = start_call("glu.radix_sort_segmented")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        n = keys.shape[0]
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _radix_sort_segmented_offsets(keys, values, offsets, backend, bits)
+        p = int(num_partitions)
+        check_argument(p >= 1, "num_partitions must be >= 1")
+        check_argument(n % p == 0, "count (%d) must divide into %d partitions", n, p)
+        if p == 1:
+            return radix_sort(keys, values, backend=backend, bits=bits)
+        if n <= 1:
+            return keys, values
+        seg = torch.arange(n, dtype=torch.int32, device=keys.device) // (n // p)
+        return _segmented_sort(keys, values, seg, p, backend, bits)
+    finally:
+        stop(call)
 
 
 def _radix_sort_segmented_offsets(keys, values, offsets, backend, bits):
@@ -1989,17 +2076,22 @@ class RadixSort:
     ) -> None:
         """Warm the sort for `count` pairs on `device` (default: the card;
         raises when there is none)."""
-        from .router import _npasses_of, _sort_backend
+        call = start_call("glu.RadixSort.prepare_internal_buffers")
+        try:
+            from .router import _npasses_of, _sort_backend
 
-        k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
-        b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
-        key = (count, b, k.device)
-        if count <= 1 or key in self._warm:
-            return
-        radix_sort(k, torch.zeros_like(k.view(torch.int32)).view(torch.uint32), backend=b)
-        if k.is_cuda:
-            torch.cuda.synchronize(k.device)
-        self._warm.add(key)
+            k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
+            b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
+            key = (count, b, k.device)
+            if count <= 1 or key in self._warm:
+                return
+            radix_sort(k, torch.zeros_like(k.view(torch.int32)).view(torch.uint32), backend=b)
+            if k.is_cuda:
+                timing.count("host_syncs.prepare")
+                torch.cuda.synchronize(k.device)
+            self._warm.add(key)
+        finally:
+            stop(call)
 
     def __call__(
         self,
@@ -2010,22 +2102,26 @@ class RadixSort:
         *,
         backend: str | None = None,
     ):
-        check_argument(key_buffer is not None, "Invalid key buffer")
-        check_argument(val_buffer is not None, "Invalid value buffer")
-        kdata = key_buffer.data if isinstance(key_buffer, DeviceBuffer) else key_buffer
-        vdata = val_buffer.data if isinstance(val_buffer, DeviceBuffer) else val_buffer
-        check_argument(count <= kdata.shape[0], "count exceeds key buffer size")
-        check_argument(count <= vdata.shape[0], "count exceeds value buffer size")
-        if count <= 1:
-            return kdata[:count], vdata[:count]
-        out_k, out_v = radix_sort(kdata[:count], vdata[:count], num_steps, backend=backend)
-        if isinstance(key_buffer, DeviceBuffer):
-            kdata[:count].view(torch.int32).copy_(out_k.view(torch.int32))
-            out_k = kdata[:count]
-        if isinstance(val_buffer, DeviceBuffer):
-            vdata[:count].view(torch.int32).copy_(out_v.view(torch.int32))
-            out_v = vdata[:count]
-        return out_k, out_v
+        call = start_call("glu.RadixSort")
+        try:
+            check_argument(key_buffer is not None, "Invalid key buffer")
+            check_argument(val_buffer is not None, "Invalid value buffer")
+            kdata = key_buffer.data if isinstance(key_buffer, DeviceBuffer) else key_buffer
+            vdata = val_buffer.data if isinstance(val_buffer, DeviceBuffer) else val_buffer
+            check_argument(count <= kdata.shape[0], "count exceeds key buffer size")
+            check_argument(count <= vdata.shape[0], "count exceeds value buffer size")
+            if count <= 1:
+                return kdata[:count], vdata[:count]
+            out_k, out_v = radix_sort(kdata[:count], vdata[:count], num_steps, backend=backend)
+            if isinstance(key_buffer, DeviceBuffer):
+                kdata[:count].view(torch.int32).copy_(out_k.view(torch.int32))
+                out_k = kdata[:count]
+            if isinstance(val_buffer, DeviceBuffer):
+                vdata[:count].view(torch.int32).copy_(out_v.view(torch.int32))
+                out_v = vdata[:count]
+            return out_k, out_v
+        finally:
+            stop(call)
 ''',
     'glu_tpu_torch.ops.reduce': r'''"""Parallel reduce (sum / mul / min / max) of axis 0.
 
@@ -2058,6 +2154,7 @@ import torch
 from ..utils.buffers import DeviceBuffer, _words
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
+from ..utils.timing import start_call, stop
 
 
 class ReduceOperator(enum.Enum):
@@ -2201,13 +2298,17 @@ def reduce(x: torch.Tensor, op: ReduceOperator = ReduceOperator.SUM, *, backend:
     card's cost model (ops/router.py::_reduce_backend; on a CPU tensor
     "cuda").
     """
-    from .router import _reduce_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
+    call = start_call("glu.reduce")
+    try:
+        from .router import _reduce_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
 
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", tuple(x.shape))
-    check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
-    check_kernel_dtype(x.dtype)
-    return _reduce_impl(x, op, _reduce_backend(backend, x))
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", tuple(x.shape))
+        check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
+        check_kernel_dtype(x.dtype)
+        return _reduce_impl(x, op, _reduce_backend(backend, x))
+    finally:
+        stop(call)
 
 
 def segmented_reduce(
@@ -2230,29 +2331,33 @@ def segmented_reduce(
     inclusive_scan, which has no router (as in the JAX package): None is
     the override GLU_TPU_TORCH_BACKEND or "cuda".
     """
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_argument(x.ndim == 1, "segmented_reduce expects a 1-D array, got shape %s", tuple(x.shape))
-    check_kernel_dtype(x.dtype)
-    from ._segments import validate_offsets
+    call = start_call("glu.segmented_reduce")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_argument(x.ndim == 1, "segmented_reduce expects a 1-D array, got shape %s", tuple(x.shape))
+        check_kernel_dtype(x.dtype)
+        from ._segments import validate_offsets
 
-    n = x.shape[0]
-    offs, num_segments = validate_offsets(offsets, n, x.device)
-    ident = identity_for(op, x.dtype)
-    if n == 0:
-        return _full((num_segments,), ident, x.dtype, x.device)
-    if op != ReduceOperator.SUM or x.dtype.is_floating_point:
-        from .scan import _flagged_scan, _segment_start_flags
+        n = x.shape[0]
+        offs, num_segments = validate_offsets(offsets, n, x.device)
+        ident = identity_for(op, x.dtype)
+        if n == 0:
+            return _full((num_segments,), ident, x.dtype, x.device)
+        if op != ReduceOperator.SUM or x.dtype.is_floating_point:
+            from .scan import _flagged_scan, _segment_start_flags
 
-        incl = _words(_flagged_scan(x, _segment_start_flags(offs, n), op, inclusive=True))
-        picked = incl[(offs[1:] - 1).clamp(min=0)]
-        empty = torch.full((), ident, dtype=picked.dtype, device=x.device)
-        return torch.where(offs[1:] > offs[:-1], picked, empty).view(x.dtype)
-    from .scan import inclusive_scan
+            incl = _words(_flagged_scan(x, _segment_start_flags(offs, n), op, inclusive=True))
+            picked = incl[(offs[1:] - 1).clamp(min=0)]
+            empty = torch.full((), ident, dtype=picked.dtype, device=x.device)
+            return torch.where(offs[1:] > offs[:-1], picked, empty).view(x.dtype)
+        from .scan import inclusive_scan
 
-    incl = _words(inclusive_scan(x, op=op, backend=backend))
-    # prefix value BEFORE each boundary: 0 at boundary 0, incl[o-1] else
-    pref = torch.where(offs > 0, incl[(offs - 1).clamp(min=0)], torch.zeros((), dtype=incl.dtype, device=x.device))
-    return (pref[1:] - pref[:-1]).view(x.dtype)
+        incl = _words(inclusive_scan(x, op=op, backend=backend))
+        # prefix value BEFORE each boundary: 0 at boundary 0, incl[o-1] else
+        pref = torch.where(offs > 0, incl[(offs - 1).clamp(min=0)], torch.zeros((), dtype=incl.dtype, device=x.device))
+        return (pref[1:] - pref[:-1]).view(x.dtype)
+    finally:
+        stop(call)
 
 
 class Reduce:
@@ -2272,13 +2377,17 @@ class Reduce:
         self.operator = operator
 
     def __call__(self, buffer: DeviceBuffer | torch.Tensor, count: int, *, backend: str | None = None):
-        data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
-        check_argument(count >= 1, "Count must be >= 1")
-        check_argument(count <= data.shape[0], "count %d exceeds buffer size %d", count, data.shape[0])
-        result = reduce(data[:count], self.operator, backend=backend)
-        if isinstance(buffer, DeviceBuffer):
-            _words(data[0]).copy_(_words(result))
-        return result
+        call = start_call("glu.Reduce")
+        try:
+            data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
+            check_argument(count >= 1, "Count must be >= 1")
+            check_argument(count <= data.shape[0], "count %d exceeds buffer size %d", count, data.shape[0])
+            result = reduce(data[:count], self.operator, backend=backend)
+            if isinstance(buffer, DeviceBuffer):
+                _words(data[0]).copy_(_words(result))
+            return result
+        finally:
+            stop(call)
 ''',
     'glu_tpu_torch.ops.reference': r'''"""Golden references in plain torch (counterpart of glu_tpu/ops/reference.py):
 the simplest correct expression of each op's contract, independent of the
@@ -2396,6 +2505,7 @@ import torch
 
 from ..utils.errors import check_argument
 from ..utils.log import vlog
+from ..utils.timing import count, start, stop
 from . import _cuda_sort as cs
 from . import backend as _backend
 
@@ -2645,20 +2755,31 @@ def _faster(torch_s: float, cuda_s: float) -> str:
     return "torch" if torch_s * (1 + TORCH_MARGIN) < cuda_s else "cuda"
 
 
+def _routed(op: str, backend: str) -> str:
+    """Counts the route of one decision (route.<op>.<backend>) and returns it."""
+    count(f"route.{op}.{backend}")
+    return backend
+
+
 def _sort_backend(backend, tensor: torch.Tensor, n: int, num_streams: int, npasses: int,
                   full_cover: bool | None = None) -> str:
     """The backend of a sort of n keys of `tensor` with num_streams
     payloads in npasses 8-bit passes; full_cover: whether the sorted bits
     are the whole key (default: 4 passes), else the "torch" backend masks
     the key first. Routed only where ops/backend.py::routable says so."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    if num_streams >= cs.MAX_STREAMS:  # both backends sort an index and gather the payloads by it
-        num_streams = 1
-    if full_cover is None:
-        full_cover = npasses >= cs.MAX_PASSES
-    return _faster(_torch_sort_est_s(m, n, num_streams, full_cover), _cuda_sort_est_s(m, n, num_streams, npasses))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("sort", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        if num_streams >= cs.MAX_STREAMS:  # both backends sort an index and gather the payloads by it
+            num_streams = 1
+        if full_cover is None:
+            full_cover = npasses >= cs.MAX_PASSES
+        torch_s = _torch_sort_est_s(m, n, num_streams, full_cover)
+        return _routed("sort", _faster(torch_s, _cuda_sort_est_s(m, n, num_streams, npasses)))
+    finally:
+        stop(opened)
 
 
 def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, extra_ops: int) -> str:
@@ -2666,11 +2787,15 @@ def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, ex
     the engine chains a sort of the low word and one of the high word, each
     carrying 2 payloads, in p_lo and p_hi passes (0: no bit of that word is
     sorted); "torch" sorts once on the int64 key, masking `extra_ops` words."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    torch_s = _table_s(m.torch["u64"], n) + extra_ops * _compact_s(m, n)
-    return _faster(torch_s, _chain_est_s(m, n, (2, p_lo), (2, p_hi)))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("u64", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        torch_s = _table_s(m.torch["u64"], n) + extra_ops * _compact_s(m, n)
+        return _routed("u64", _faster(torch_s, _chain_est_s(m, n, (2, p_lo), (2, p_hi))))
+    finally:
+        stop(opened)
 
 
 def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, seg_passes: int,
@@ -2679,11 +2804,15 @@ def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, s
     sort (key_passes) and the segment-id sort (seg_passes), each carrying 2
     payloads; "torch" sorts once on the int64 of (segment id, key), masking
     the key unless full_cover."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    torch_s = _table_s(m.torch["segmented"], n) + (0.0 if full_cover else _compact_s(m, n))
-    return _faster(torch_s, _chain_est_s(m, n, (2, key_passes), (2, seg_passes)))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("segmented", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        torch_s = _table_s(m.torch["segmented"], n) + (0.0 if full_cover else _compact_s(m, n))
+        return _routed("segmented", _faster(torch_s, _chain_est_s(m, n, (2, key_passes), (2, seg_passes))))
+    finally:
+        stop(opened)
 
 
 def _reduce_backend(backend, x: torch.Tensor) -> str:
@@ -2691,9 +2820,13 @@ def _reduce_backend(backend, x: torch.Tensor) -> str:
     reduce_torch_max_n elements (the calibration's sizes up to which
     torch's call beat K5 at every one in every reading; 0 where it did not
     at the smallest, which makes this the constant "cuda"), "cuda" above. segmented_reduce is not routed: its integer SUM is a scan."""
-    if not _backend.routable(backend, x):
-        return _backend.resolve_backend(backend, x)
-    return "torch" if x.numel() <= _cost_model(x.device).reduce_torch_max_n else "cuda"
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, x):
+            return _routed("reduce", _backend.resolve_backend(backend, x))
+        return _routed("reduce", "torch" if x.numel() <= _cost_model(x.device).reduce_torch_max_n else "cuda")
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -3081,6 +3214,7 @@ from ..utils.buffers import DeviceBuffer, _words
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
 from ..utils.math import is_power_of_2
+from ..utils.timing import count, start_call, stop
 from .backend import resolve_backend
 from .reduce import (
     ReduceOperator,
@@ -3146,8 +3280,11 @@ def _segment_start_flags(offs: torch.Tensor, n: int) -> torch.Tensor:
     Element 0 always starts a segment."""
     inner = offs[1:-1]
     flags = torch.zeros(n, dtype=torch.bool, device=offs.device)
+    count("host_syncs.offsets_mask")  # a boolean mask's selection fetches its count
     flags[inner[inner < n]] = True
     flags[0] = True
+    if flags.is_cuda:
+        count("host_syncs.scalar_write", 2)  # each write of a Python scalar copies it onto the card
     return flags
 
 
@@ -3196,6 +3333,7 @@ def _segmented_scan_offsets(x, offsets, op, backend, inclusive: bool) -> torch.T
     incs = vals.clone()
     incs[1:] -= vals[:-1]
     keep = offs[:-1] < n
+    count("host_syncs.offsets_mask", 2)  # each boolean mask's selection fetches its count
     sparse = torch.zeros(n, dtype=torch.int32, device=x.device).index_add_(0, offs[:-1][keep], incs[keep])
     base = _scan_impl(sparse, 1, ReduceOperator.SUM, backend) + sparse  # inclusive
     out = b - base
@@ -3228,11 +3366,15 @@ def exclusive_scan(
     the override GLU_TPU_TORCH_BACKEND or "cuda" (the scans have no router,
     as in the JAX package).
     """
-    _check_scan_args(x, num_partitions, op)
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=False)
-    return _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+    call = start_call("glu.exclusive_scan")
+    try:
+        _check_scan_args(x, num_partitions, op)
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _segmented_scan_offsets(x, offsets, op, backend, inclusive=False)
+        return _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+    finally:
+        stop(call)
 
 
 def inclusive_scan(
@@ -3247,12 +3389,16 @@ def inclusive_scan(
     partition, derived as `op(exclusive, x)` elementwise, exact for every
     operator (wrapping u32 sums and products included). See exclusive_scan
     for the arguments."""
-    _check_scan_args(x, num_partitions, op)
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=True)
-    exc = _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
-    return combine_fn(op)(exc, x)
+    call = start_call("glu.inclusive_scan")
+    try:
+        _check_scan_args(x, num_partitions, op)
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _segmented_scan_offsets(x, offsets, op, backend, inclusive=True)
+        exc = _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+        return combine_fn(op)(exc, x)
+    finally:
+        stop(call)
 
 
 class BlellochScan:
@@ -3281,24 +3427,28 @@ class BlellochScan:
         *,
         backend: str | None = None,
     ):
-        data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
-        check_argument(count >= 1, "Count must be >= 1")
-        check_argument(is_power_of_2(count), "Count must be a power of 2 (got %d)", count)
-        if self.info.components > 1:
+        call = start_call("glu.BlellochScan")
+        try:
+            data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
+            check_argument(count >= 1, "Count must be >= 1")
+            check_argument(is_power_of_2(count), "Count must be a power of 2 (got %d)", count)
+            if self.info.components > 1:
+                check_argument(
+                    data.ndim == 2 and data.shape[1] == self.info.components,
+                    "%s buffers carry components in the trailing axis (N, %d), got shape %s",
+                    self.info.name, self.info.components, tuple(data.shape),
+                )
+            total = count * num_partitions
             check_argument(
-                data.ndim == 2 and data.shape[1] == self.info.components,
-                "%s buffers carry components in the trailing axis (N, %d), got shape %s",
-                self.info.name, self.info.components, tuple(data.shape),
+                total <= data.shape[0], "count*num_partitions %d exceeds buffer size %d", total, data.shape[0]
             )
-        total = count * num_partitions
-        check_argument(
-            total <= data.shape[0], "count*num_partitions %d exceeds buffer size %d", total, data.shape[0]
-        )
-        result = exclusive_scan(data[:total], num_partitions, self.operator, backend=backend)
-        if isinstance(buffer, DeviceBuffer):
-            _words(data[:total]).copy_(_words(result))
-            return data[:total]
-        return result
+            result = exclusive_scan(data[:total], num_partitions, self.operator, backend=backend)
+            if isinstance(buffer, DeviceBuffer):
+                _words(data[:total]).copy_(_words(result))
+                return data[:total]
+            return result
+        finally:
+            stop(call)
 ''',
     'glu_tpu_torch.parallel': r'''"""Multi-process layer of the port (counterpart of glu_tpu/parallel).
 
@@ -3371,6 +3521,7 @@ import torch
 from ..ops._common import kernels, launch, on_cuda
 from ..ops.radix_sort import _SIGN
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 
 # Splitters staged in shared memory, fixed at compile time in csrc/bucket.cu
 # (kSmemSplitters) and checked when the library is loaded; more are searched
@@ -3455,10 +3606,14 @@ def bucket_of(words: torch.Tensor, base: int, s_words: torch.Tensor, s_idx: torc
     `words`, the count of the D - 1 splitters (s_words[j] u32, s_idx[j]
     int64), in non-decreasing lexicographic order, that are <= (words[i],
     base + i). Returns n int32, in one launch on a CUDA tensor."""
-    _check([words], base, [s_words], s_idx)
-    if not on_cuda(words):
-        return bucket_of_ref(words, base, s_words, s_idx)
-    return _launch("glu_bucket_of", [words], base, [s_words], s_idx)
+    opened = start("glu.engine.kb")
+    try:
+        _check([words], base, [s_words], s_idx)
+        if not on_cuda(words):
+            return bucket_of_ref(words, base, s_words, s_idx)
+        return _launch("glu_bucket_of", [words], base, [s_words], s_idx)
+    finally:
+        stop(opened)
 
 
 def bucket_of64(hi: torch.Tensor, lo: torch.Tensor, base: int, s_hi: torch.Tensor, s_lo: torch.Tensor,
@@ -3466,11 +3621,14 @@ def bucket_of64(hi: torch.Tensor, lo: torch.Tensor, base: int, s_hi: torch.Tenso
     """KB's 64-bit form (replaces dist_sort.py::_bucket_of64): the same count
     under lexicographic (hi, lo, global index) order, keys given as u32
     words."""
-    _check([hi, lo], base, [s_hi, s_lo], s_idx)
-    if not on_cuda(hi):
-        return bucket_of64_ref(hi, lo, base, s_hi, s_lo, s_idx)
-    return _launch("glu_bucket_of64", [hi, lo], base, [s_hi, s_lo], s_idx)
-''',
+    opened = start("glu.engine.kb")
+    try:
+        _check([hi, lo], base, [s_hi, s_lo], s_idx)
+        if not on_cuda(hi):
+            return bucket_of64_ref(hi, lo, base, s_hi, s_lo, s_idx)
+        return _launch("glu_bucket_of64", [hi, lo], base, [s_hi, s_lo], s_idx)
+    finally:
+        stop(opened)''',
     'glu_tpu_torch.parallel.dist_primitives': r'''"""Distributed reduce and exclusive scan over a torch.distributed process group.
 
 Counterpart of glu_tpu/parallel/dist_primitives.py, with a process group in
@@ -3506,6 +3664,7 @@ import torch.distributed as dist
 from ..ops.reduce import ReduceOperator, _full, check_kernel_dtype, combine_fn, identity_for, reduce
 from ..ops.scan import exclusive_scan
 from ..utils.errors import check_argument, check_state
+from ..utils.timing import count, span, start_call, stop
 
 _SERVES = {"nccl": "cuda", "gloo": "cpu"}  # backend -> the device type its collectives take
 
@@ -3550,14 +3709,17 @@ def _check_1d_sharded(x: torch.Tensor, group):
     """(group, rank, world size) after checking that x is a 1-D tensor on a
     device the group serves and that every rank's shard has x's length: one
     all_gather of the lengths (and a host sync), after which every rank
-    raises together. One rank has nothing to compare."""
+    raises together. One rank has nothing to compare. A span glu.dist.check."""
     check_argument(x.ndim == 1, "expected a 1-D shard, got shape %s", tuple(x.shape))
     group = _resolve_group(group)
     _check_device(x, group)
     if dist.get_world_size(group) == 1:
         return group, 0, 1
-    length = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    lengths = _all_gather(length, group).view(-1).tolist()
+    with span("glu.dist.check"):
+        length = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+        lengths = _all_gather(length, group).view(-1).tolist()
+        # the lengths' fetch, and on the card the copy of this rank's length onto it
+        count("host_syncs.dist_check", 1 + int(length.is_cuda))
     check_argument(len(set(lengths)) == 1, "shards must have equal lengths, got %s by rank", lengths)
     return group, dist.get_rank(group), len(lengths)
 
@@ -3573,16 +3735,20 @@ def distributed_reduce(
     one global scalar, the same 0-d tensor on every rank. x is this rank's
     shard. Wrapping u32 sum/mul semantics match the single-card reduce;
     `backend` goes to it."""
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_kernel_dtype(x.dtype)
-    group, _, world = _check_1d_sharded(x, group)
-    check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
-    combine = combine_fn(op)
-    partials = _all_gather(reduce(x, op, backend=backend).reshape(1), group)[:, 0]  # (D,) tiny
-    total = partials[0]
-    for d in range(1, world):
-        total = combine(total, partials[d])
-    return total
+    call = start_call("glu.distributed_reduce")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_kernel_dtype(x.dtype)
+        group, _, world = _check_1d_sharded(x, group)
+        check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
+        combine = combine_fn(op)
+        partials = _all_gather(reduce(x, op, backend=backend).reshape(1), group)[:, 0]  # (D,) tiny
+        total = partials[0]
+        for d in range(1, world):
+            total = combine(total, partials[d])
+        return total
+    finally:
+        stop(call)
 
 
 def distributed_exclusive_scan(
@@ -3596,19 +3762,23 @@ def distributed_exclusive_scan(
     sharded the same way on output: element i of this rank's shard receives
     the op-fold of the elements before it in GLOBAL order (rank-major
     shards, the distributed sort's index convention)."""
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_kernel_dtype(x.dtype)
-    group, rank, _ = _check_1d_sharded(x, group)
-    if x.shape[0] == 0:
-        return torch.empty_like(x)
-    combine = combine_fn(op)
-    local_exc = exclusive_scan(x, 1, op, backend=backend)
-    # shard total = op(exclusive[-1], x[-1]): no second reduction
-    totals = _all_gather(combine(local_exc[-1:], x[-1:]), group)[:, 0]  # (D,) tiny
-    prefix = _full((), identity_for(op, x.dtype), x.dtype, x.device)
-    for d in range(rank):
-        prefix = combine(prefix, totals[d])
-    return combine(local_exc, prefix)
+    call = start_call("glu.distributed_exclusive_scan")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_kernel_dtype(x.dtype)
+        group, rank, _ = _check_1d_sharded(x, group)
+        if x.shape[0] == 0:
+            return torch.empty_like(x)
+        combine = combine_fn(op)
+        local_exc = exclusive_scan(x, 1, op, backend=backend)
+        # shard total = op(exclusive[-1], x[-1]): no second reduction
+        totals = _all_gather(combine(local_exc[-1:], x[-1:]), group)[:, 0]  # (D,) tiny
+        prefix = _full((), identity_for(op, x.dtype), x.dtype, x.device)
+        for d in range(rank):
+            prefix = combine(prefix, totals[d])
+        return combine(local_exc, prefix)
+    finally:
+        stop(call)
 
 
 def distributed_inclusive_scan(
@@ -3620,8 +3790,12 @@ def distributed_inclusive_scan(
 ) -> torch.Tensor:
     """Inclusive variant: `op(exclusive, x)` elementwise (exact for every
     operator, wrapping arithmetic included)."""
-    exc = distributed_exclusive_scan(x, group, op, backend=backend)
-    return combine_fn(op)(exc, x)
+    call = start_call("glu.distributed_inclusive_scan")
+    try:
+        exc = distributed_exclusive_scan(x, group, op, backend=backend)
+        return combine_fn(op)(exc, x)
+    finally:
+        stop(call)
 ''',
     'glu_tpu_torch.parallel.dist_sort': r'''"""Distributed stable radix sort over a torch.distributed process group.
 
@@ -3698,6 +3872,7 @@ from ..ops.radix_sort import (
     radix_sort_u64_parts,
 )
 from ..utils.errors import check_argument
+from ..utils.timing import count, span, start_call, stop
 from ._cuda_bucket import bucket_of, bucket_of64, bucket_of64_ref, bucket_of_ref, ordered, wide_key
 from .dist_primitives import _all_gather, _check_1d_sharded, _resolve_group
 
@@ -3864,25 +4039,32 @@ def _exchange_and_sort(arrays, bucket, local_sort, *, group, rank: int, num_devi
     async all_to_all_single per stream, issued before the next chunk is
     partitioned so that the two overlap. Once every transfer is waited on,
     the blocks are placed source-major, chunk-minor and sorted by
-    `local_sort`. Returns (sorted streams, counts (D,) int32)."""
+    `local_sort`. Returns (sorted streams, counts (D,) int32). Spans: a
+    chunk's glu.dist.partition, glu.dist.counts and glu.dist.exchange, then
+    glu.dist.place, glu.dist.local_sort and glu.dist.total (the counts'
+    copy onto the card); the counter dist.bytes_sent counts the bytes this
+    rank sends to the others."""
     chunk_len = bucket.shape[0] // num_chunks
     received = [[] for _ in arrays]  # [stream][chunk]: (what arrived, its sizes by source)
     total = torch.zeros(num_devices, dtype=torch.int32)
     pending = []
     for c in range(num_chunks):
         cut = slice(c * chunk_len, (c + 1) * chunk_len)
-        parts, counts, _ = _partition_by_bucket(bucket[cut], [a[cut] for a in arrays], num_devices, backend)
-        rows = _all_gather(counts, group).cpu()  # (source, destination)
-        _, sizes, total_c = ragged_exchange_plan(rows, int(rows.sum()))  # exact: nothing is clamped
-        send, recv = rows[rank].tolist(), sizes[:, rank].tolist()
-        total += total_c
-        for stream, part in enumerate(parts):
-            out = torch.empty(sum(recv), dtype=torch.int32, device=part.device)
-            work = dist.all_to_all_single(out, _words(part), recv, send, group=group, async_op=True)
-            pending.append((work, part))
-            received[stream].append((out, recv))
-    for work, _ in pending:
-        work.wait()
+        with span("glu.dist.partition"):
+            parts, counts, _ = _partition_by_bucket(bucket[cut], [a[cut] for a in arrays], num_devices, backend)
+        with span("glu.dist.counts"):
+            rows = _all_gather(counts, group).cpu()  # (source, destination)
+            count("host_syncs.dist_counts")
+        with span("glu.dist.exchange"):
+            _, sizes, total_c = ragged_exchange_plan(rows, int(rows.sum()))  # exact: nothing is clamped
+            send, recv = rows[rank].tolist(), sizes[:, rank].tolist()
+            total += total_c
+            for stream, part in enumerate(parts):
+                out = torch.empty(sum(recv), dtype=torch.int32, device=part.device)
+                work = dist.all_to_all_single(out, _words(part), recv, send, group=group, async_op=True)
+                pending.append((work, part))
+                received[stream].append((out, recv))
+            count("dist.bytes_sent", 4 * len(parts) * (sum(send) - send[rank]))
 
     def placed(chunks):
         # the plan over (source, chunk) rows puts block (s, c) at the running
@@ -3892,7 +4074,17 @@ def _exchange_and_sort(arrays, bucket, local_sort, *, group, rank: int, num_devi
         blocks = [out.split(recv) for out, recv in chunks]
         return _u32(torch.cat([blocks[c][s] for s in range(num_devices) for c in range(num_chunks)]))
 
-    return list(local_sort(*map(placed, received))), total.to(bucket.device)
+    with span("glu.dist.place"):
+        for work, _ in pending:
+            work.wait()
+        streams = [placed(chunks) for chunks in received]
+    with span("glu.dist.local_sort"):
+        result = list(local_sort(*streams))
+    with span("glu.dist.total"):
+        total = total.to(bucket.device)
+        if total.is_cuda:
+            count("host_syncs.dist_total")  # the counts' copy onto the card waits for its stream
+    return result, total
 
 
 def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices: int, num_samples: int,
@@ -3902,11 +4094,14 @@ def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices:
     sort. Returns ([keys, values], counts)."""
     dev = keys.device
     if num_devices == 1:
-        return list(local_sort(keys, values)), torch.full((1,), keys.shape[0], dtype=torch.int32, device=dev)
-    samples, idx = _local_samples(keys, rank, num_samples)
-    sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
-                               num_devices)
-    bucket = _bucket_of(keys, rank, sk, si, backend)
+        with span("glu.dist.local_sort"):
+            return list(local_sort(keys, values)), torch.full((1,), keys.shape[0], dtype=torch.int32, device=dev)
+    with span("glu.dist.splitters"):
+        samples, idx = _local_samples(keys, rank, num_samples)
+        sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
+                                   num_devices)
+    with span("glu.dist.bucket"):
+        bucket = _bucket_of(keys, rank, sk, si, backend)
     return _exchange_and_sort([keys, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -3917,11 +4112,14 @@ def _dist_sort_shard64(hi, lo, values, local_sort, *, group, rank: int, num_devi
     values], counts)."""
     dev = hi.device
     if num_devices == 1:
-        return list(local_sort(hi, lo, values)), torch.full((1,), hi.shape[0], dtype=torch.int32, device=dev)
-    s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
-    gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
-    shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
-    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
+        with span("glu.dist.local_sort"):
+            return list(local_sort(hi, lo, values)), torch.full((1,), hi.shape[0], dtype=torch.int32, device=dev)
+    with span("glu.dist.splitters"):
+        s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
+        gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
+        shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
+    with span("glu.dist.bucket"):
+        bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
     return _exchange_and_sort([hi, lo, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -3930,8 +4128,10 @@ def _global_positions(key_words, group, backend):
     """bits="auto" over the GLOBAL array: each rank's (OR, AND) envelope of
     every key word, one all_gather, folded on the host (NCCL has no bitwise
     reduce op). Returns the positions of each word."""
-    env = torch.cat([_key_envelope(_words(w), resolve_backend(backend, w)) for w in key_words])
-    rows = _all_gather(env, group).tolist()  # (D, 2 * words): a host sync
+    with span("glu.bits_auto"):
+        env = torch.cat([_key_envelope(_words(w), resolve_backend(backend, w)) for w in key_words])
+        rows = _all_gather(env, group).tolist()  # (D, 2 * words): a host sync
+        count("host_syncs.dist_bits_auto")
     positions = []
     for j in range(len(key_words)):
         or_word, and_word = 0, 0xFFFFFFFF
@@ -3984,28 +4184,32 @@ def distributed_radix_sort(
     (an envelope a rank, one all_gather and a host sync), to which every
     rank's local sort prunes; splitters order by the full key.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    _check_common(num_samples, backend)
-    group, rank, world = _check_1d_sharded(keys, group)
-    local_n = keys.shape[0]
-    chunks = _resolve_chunks(pipeline_chunks, world, local_n)
-    words = ~_words(keys) if descending else _words(keys)  # NOT reverses u32 order; stability is kept
-    if bits == "auto":
-        positions = _global_positions([words], group, backend)[0]
-    else:
-        positions = _norm_bits(bits, words, 0, backend)
-    dev = keys.device
-    overflow = torch.zeros(world, dtype=torch.int32, device=dev)
-    if local_n == 0:
-        return keys, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
-    (out_k, out_v), counts = _dist_sort_shard(
-        _u32(words), values, lambda k, v: radix_sort(k, v, backend=backend, bits=positions),
-        group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
-        backend=backend, num_chunks=chunks,
-    )
-    if descending:
-        out_k = _u32(~_words(out_k))
-    return out_k, out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        _check_common(num_samples, backend)
+        group, rank, world = _check_1d_sharded(keys, group)
+        local_n = keys.shape[0]
+        chunks = _resolve_chunks(pipeline_chunks, world, local_n)
+        words = ~_words(keys) if descending else _words(keys)  # NOT reverses u32 order; stability is kept
+        if bits == "auto":
+            positions = _global_positions([words], group, backend)[0]
+        else:
+            positions = _norm_bits(bits, words, 0, backend)
+        dev = keys.device
+        overflow = torch.zeros(world, dtype=torch.int32, device=dev)
+        if local_n == 0:
+            return keys, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
+        (out_k, out_v), counts = _dist_sort_shard(
+            _u32(words), values, lambda k, v: radix_sort(k, v, backend=backend, bits=positions),
+            group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
+            backend=backend, num_chunks=chunks,
+        )
+        if descending:
+            out_k = _u32(~_words(out_k))
+        return out_k, out_v, counts, overflow
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_f32(keys: torch.Tensor, values: torch.Tensor, group=None, *, descending: bool = False,
@@ -4015,10 +4219,14 @@ def distributed_radix_sort_f32(keys: torch.Tensor, values: torch.Tensor, group=N
     order: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN). The
     bijection is monotonic, so splitters, buckets and every rank's range
     carry over. Same contract as distributed_radix_sort, with float32 keys."""
-    _check_inputs(keys, torch.float32, values=values)
-    out = distributed_radix_sort(_u32(_f32_to_sortable(keys.contiguous().view(torch.int32))), values, group,
-                                 descending=descending, **kwargs)
-    return (_sortable_to_f32(_words(out[0])), *out[1:])
+    call = start_call("glu.distributed_radix_sort_f32")
+    try:
+        _check_inputs(keys, torch.float32, values=values)
+        out = distributed_radix_sort(_u32(_f32_to_sortable(keys.contiguous().view(torch.int32))), values, group,
+                                     descending=descending, **kwargs)
+        return (_sortable_to_f32(_words(out[0])), *out[1:])
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_i32(keys: torch.Tensor, values: torch.Tensor, group=None, *, descending: bool = False,
@@ -4026,9 +4234,13 @@ def distributed_radix_sort_i32(keys: torch.Tensor, values: torch.Tensor, group=N
     """Globally sort i32 (key, value) pairs sharded over `group`, via the
     sign-bit flip of radix_sort_i32 (an order-preserving bijection onto
     u32). Same contract as distributed_radix_sort, with int32 keys."""
-    _check_inputs(keys, torch.int32, values=values)
-    out = distributed_radix_sort(_u32(keys.contiguous() ^ _SIGN), values, group, descending=descending, **kwargs)
-    return (_words(out[0]) ^ _SIGN, *out[1:])
+    call = start_call("glu.distributed_radix_sort_i32")
+    try:
+        _check_inputs(keys, torch.int32, values=values)
+        out = distributed_radix_sort(_u32(keys.contiguous() ^ _SIGN), values, group, descending=descending, **kwargs)
+        return (_words(out[0]) ^ _SIGN, *out[1:])
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_u64_parts(
@@ -4050,43 +4262,51 @@ def distributed_radix_sort_u64_parts(
     local sort is the chained 32-bit composition. Returns (hi, lo, values,
     counts, overflow). bits: None or "auto", which prunes the constant bits
     of EACH word of the global array."""
-    _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
-    _check_common(num_samples, backend)
-    check_argument(bits in (None, "auto"), 'distributed u64 sorts accept only bits=None or "auto"')
-    group, rank, world = _check_1d_sharded(keys_hi, group)
-    local_n = keys_hi.shape[0]
-    chunks = _resolve_chunks(pipeline_chunks, world, local_n)
-    hi, lo = _words(keys_hi), _words(keys_lo)
-    if descending:  # complementing both words reverses u64 order
-        hi, lo = ~hi, ~lo
-    positions = tuple(_global_positions([hi, lo], group, backend)) if bits == "auto" else None
-    dev = keys_hi.device
-    overflow = torch.zeros(world, dtype=torch.int32, device=dev)
-    if local_n == 0:
-        return keys_hi, keys_lo, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
-    (out_hi, out_lo, out_v), counts = _dist_sort_shard64(
-        _u32(hi), _u32(lo), values,
-        lambda h, l, v: radix_sort_u64_parts(h, l, v, backend=backend, bits=positions),
-        group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
-        backend=backend, num_chunks=chunks,
-    )
-    if descending:
-        out_hi, out_lo = _u32(~_words(out_hi)), _u32(~_words(out_lo))
-    return out_hi, out_lo, out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort_u64_parts")
+    try:
+        _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
+        _check_common(num_samples, backend)
+        check_argument(bits in (None, "auto"), 'distributed u64 sorts accept only bits=None or "auto"')
+        group, rank, world = _check_1d_sharded(keys_hi, group)
+        local_n = keys_hi.shape[0]
+        chunks = _resolve_chunks(pipeline_chunks, world, local_n)
+        hi, lo = _words(keys_hi), _words(keys_lo)
+        if descending:  # complementing both words reverses u64 order
+            hi, lo = ~hi, ~lo
+        positions = tuple(_global_positions([hi, lo], group, backend)) if bits == "auto" else None
+        dev = keys_hi.device
+        overflow = torch.zeros(world, dtype=torch.int32, device=dev)
+        if local_n == 0:
+            return keys_hi, keys_lo, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
+        (out_hi, out_lo, out_v), counts = _dist_sort_shard64(
+            _u32(hi), _u32(lo), values,
+            lambda h, l, v: radix_sort_u64_parts(h, l, v, backend=backend, bits=positions),
+            group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
+            backend=backend, num_chunks=chunks,
+        )
+        if descending:
+            out_hi, out_lo = _u32(~_words(out_hi)), _u32(~_words(out_lo))
+        return out_hi, out_lo, out_v, counts, overflow
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, group=None, **kwargs):
     """Globally sort (u64 key, u32 value) pairs (keys torch.uint64) sharded
     over `group`, via distributed_radix_sort_u64_parts on the int32 pairs
     the keys are made of. Returns (keys, values, counts, overflow)."""
-    _check_inputs(keys, torch.uint64, values=values)
-    pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
-    out_hi, out_lo, out_v, counts, overflow = distributed_radix_sort_u64_parts(
-        _u32(pairs[:, 1].contiguous()), _u32(pairs[:, 0].contiguous()), values, group, **kwargs
-    )
-    out = torch.empty((out_hi.shape[0], 2), dtype=torch.int32, device=out_hi.device)
-    out[:, 0], out[:, 1] = _words(out_lo), _words(out_hi)
-    return out.view(torch.uint64).view(-1), out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort_u64")
+    try:
+        _check_inputs(keys, torch.uint64, values=values)
+        pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
+        out_hi, out_lo, out_v, counts, overflow = distributed_radix_sort_u64_parts(
+            _u32(pairs[:, 1].contiguous()), _u32(pairs[:, 0].contiguous()), values, group, **kwargs
+        )
+        out = torch.empty((out_hi.shape[0], 2), dtype=torch.int32, device=out_hi.device)
+        out[:, 0], out[:, 1] = _words(out_lo), _words(out_hi)
+        return out.view(torch.uint64).view(-1), out_v, counts, overflow
+    finally:
+        stop(call)
 ''',
     'glu_tpu_torch.utils': r'''"""Runtime utility layer of the port (counterpart of glu_tpu/utils)."""
 
@@ -4439,7 +4659,9 @@ def check_argument(cond: bool, fmt: str = "invalid argument", *args) -> None:
 ''',
     'glu_tpu_torch.utils.log': r'''"""Verbose logging gate (counterpart of glu_tpu/utils/log.py).
 
-GLU_TPU_VERBOSE=1 sends diagnostics to stderr: tile counts, pass layout.
+GLU_TPU_VERBOSE=1 sends diagnostics to stderr: which cost model the router
+loaded, once a process. A sort's path is named by its engine span
+(utils/timing.py).
 """
 
 from __future__ import annotations
@@ -4509,18 +4731,44 @@ def log32_ceil(n: int) -> int:
     """ceil(log32(n)) (reference gl_utils.hpp:279-284)."""
     return div_ceil(log2_ceil(n), 5)
 ''',
-    'glu_tpu_torch.utils.timing': r'''"""Timing (counterpart of glu_tpu/utils/timing.py).
+    'glu_tpu_torch.utils.timing': r'''"""Timing and tracing (counterpart of glu_tpu/utils/timing.py).
 
 The reference times a callback with a GL_TIME_ELAPSED query
 (gl_utils.hpp:249-265). On the GPU the counterpart is a pair of CUDA events
 on the current stream around the callback; on the CPU it is the host clock.
 `trace()` wraps torch.profiler, the counterpart of jax.profiler.
+
+The port's own tracing is one store a process, kept here:
+  - `span(name)`: a context manager around a stage of a call, and
+    `start(name)` / `stop()`, the same span at the cost of a call and a
+    test when tracing is off. Each record holds the name, start and end
+    (time.perf_counter_ns), its parent span and a call id: a public
+    function opens a call id (`start_call`), and every span under it
+    shares that id; nesting is tracked per thread.
+  - `count(name, n=1)`: a counter, always on (an integer add).
+  - `enable()` / `disable()`: spans on for an operator's own runs.
+  - `summary()`: for each span name its count, total and self microseconds
+    (duration less what its child spans cover), every counter, and each
+    kernel module's launch counts as `launches.<kernel>`.
+  - `records()`, `reset()`.
+
+Spans record while enable() holds or while a torch.profiler records. The
+profiler is checked once a public call, at its top-level span; the spans
+inside read a module flag, so that with tracing off a span costs a call
+and a test. While a profiler records, each span also enters the
+profiler's own record function, so that it stands in the Chrome trace as
+a `cpu_op` event of the same name, on the trace's clock. The store keeps
+MAX_RECORDS raw records; past them summary() goes on counting.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
+import sys
+import threading
 import time
 from typing import Callable
 
@@ -4590,18 +4838,237 @@ class StopWatch:
         return ns_to_human_string(self.elapsed_ns())
 
 
+# ---------------------------------------------------------------------------
+# the port's tracing: spans and counters
+# ---------------------------------------------------------------------------
+
+MAX_RECORDS = 1_000_000  # raw span records kept; past them summary() still counts every span
+
+# the modules whose launch counts summary() reports, under the package's root
+# (glu_tpu_torch, or the single file's module name)
+_ROOT = __name__.rsplit(".", 2)[0]
+_LAUNCH_MODULES = ("ops._cuda_sort", "ops._cuda_scan", "ops._cuda_reduce", "parallel._cuda_bucket")
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_trace_event = torch._C._profiler._RecordFunctionFast
+
+Record = collections.namedtuple("Record", "name start_ns end_ns parent call")
+
+_enabled = False  # enable() holds
+_on = False  # spans record: enable() holds, or a public call runs under a profiler
+_profiling = False  # the running top-level public call is profiled: spans enter its trace too
+_local = threading.local()  # .stack: the open spans of this thread, innermost last
+_records: list = []  # [name, start, end, parent record or -1, call id], in the order they opened
+_stats: dict = {}  # name -> [count, total ns, self ns]
+_counters: dict = {}
+_dropped = 0  # spans closed past MAX_RECORDS
+_calls = 0  # call ids given out
+_anchor = (time.perf_counter_ns(), time.time_ns())  # one reading of both clocks, for records()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """One span: see span(), start() and start_call()."""
+
+    __slots__ = ("name", "public", "top", "parent", "call", "index", "inner_ns", "event", "start")
+
+    def __init__(self, name: str, public: bool = False):
+        self.name, self.public = name, public
+
+    def open(self):
+        global _on, _profiling, _calls
+        stack = _stack()
+        self.top = False
+        if stack:
+            self.parent, self.call = stack[-1].index, stack[-1].call
+        else:
+            _calls += 1
+            self.parent, self.call = -1, _calls
+            if self.public:  # a public call at the top: the profiler is checked here, once a call
+                self.top = True
+                _profiling = _profiler_enabled()
+                _on = True
+        self.event = _trace_event(self.name) if _profiling else None
+        if self.event is not None:
+            self.event.__enter__()
+        self.index = len(_records) if len(_records) < MAX_RECORDS else -1
+        if self.index >= 0:
+            _records.append([self.name, 0, 0, self.parent, self.call])
+        self.inner_ns = 0
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def close(self) -> None:
+        global _on, _profiling, _dropped
+        end = time.perf_counter_ns()
+        took = end - self.start
+        stack = _stack()
+        stack.pop()
+        if stack:
+            stack[-1].inner_ns += took
+        if self.event is not None:
+            self.event.__exit__(None, None, None)
+        stat = _stats.get(self.name)
+        if stat is None:
+            stat = _stats[self.name] = [0, 0, 0]
+        stat[0] += 1
+        stat[1] += took
+        stat[2] += took - self.inner_ns
+        if self.index >= 0:
+            record = _records[self.index]
+            record[1], record[2] = self.start, end
+        else:
+            _dropped += 1
+        if self.top:
+            _profiling = False
+            _on = _enabled
+
+    def __enter__(self):
+        return self.open()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _Off:
+    """The span of tracing off: a null context."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager that records a span `name` while tracing is on
+    (enable(), or a public call under a profiler), else does nothing: for a
+    stage that costs far more than a `with` statement (a host sync, a
+    collective). On a call's own path use start() and stop()."""
+    return _Span(name) if _on else _OFF
+
+
+def start(name: str):
+    """Opens a span `name` while tracing is on and returns it, else None;
+    stop() closes it, in a `finally`. Off, it costs a call and a test,
+    where a `with` statement costs several times more (PERF.md §6)."""
+    return _Span(name).open() if _on else None
+
+
+def start_call(name: str):
+    """start() for a public function: a call at the top, with tracing off,
+    checks whether a profiler records, and turns the spans on for the call
+    if one does."""
+    return _Span(name, public=True).open() if _on or _profiler_enabled() else None
+
+
+def stop(opened) -> None:
+    """Closes what start() or start_call() returned."""
+    if opened is not None:
+        opened.close()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds n to the counter `name`, whether tracing is on or off."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def enable() -> None:
+    """Spans record from now on, with or without a profiler."""
+    global _enabled, _on
+    _enabled = _on = True
+
+
+def disable() -> None:
+    """Spans record only inside public calls under a profiler again."""
+    global _enabled, _on
+    _enabled = _on = False
+
+
+def _launch_modules():
+    """The kernel modules of this package that are loaded (a module not
+    loaded has launched nothing)."""
+    return [m for m in (sys.modules.get(f"{_ROOT}.{name}") for name in _LAUNCH_MODULES) if m is not None]
+
+
+def summary() -> dict:
+    """{"spans": {name: {"count", "total_us", "self_us"}}, "counters": {name:
+    value}, "dropped": records not kept}: the counters include each loaded
+    kernel module's launch counts, as launches.<kernel>."""
+    counters = dict(_counters)
+    for module in _launch_modules():
+        counters.update((f"launches.{kernel}", n) for kernel, n in module.launch_counts().items())
+    spans = {name: {"count": c, "total_us": t / 1e3, "self_us": own / 1e3} for name, (c, t, own) in _stats.items()}
+    return {"spans": dict(sorted(spans.items())), "counters": dict(sorted(counters.items())), "dropped": _dropped}
+
+
+def records() -> list:
+    """The kept spans as Records, in the order they opened: name, start and
+    end in nanoseconds on the Unix clock (time.time_ns's; a profiler's
+    Chrome trace puts an event at baseTimeNanoseconds + 1000 * ts), the
+    index of the parent record (-1: none kept) and the call id. A span still
+    open has end_ns None."""
+    shift = _anchor[1] - _anchor[0]
+    return [Record(name, start + shift, end + shift if end else None, parent, call)
+            for name, start, end, parent, call in _records]
+
+
+def reset() -> None:
+    """Empties the store (records, span totals, counters) and the loaded
+    kernel modules' launch counts, and reads the two clocks again."""
+    global _dropped, _anchor
+    _records.clear()
+    _stats.clear()
+    _counters.clear()
+    _dropped = 0
+    for module in _launch_modules():
+        module.reset_launch_counts()
+    _anchor = (time.perf_counter_ns(), time.time_ns())
+
+
+def _since(before: dict, after: dict) -> dict:
+    """What summary() gained from `before` to `after`."""
+    spans = {}
+    for name, s in after["spans"].items():
+        b = before["spans"].get(name)
+        gained = s if b is None else {k: s[k] - b[k] for k in s}
+        if gained["count"]:
+            spans[name] = gained
+    counters = {k: v - before["counters"].get(k, 0) for k, v in after["counters"].items()}
+    return {"spans": spans, "counters": {k: v for k, v in counters.items() if v},
+            "dropped": after["dropped"] - before["dropped"]}
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """torch.profiler context over the CPU and, where there is one, the GPU.
-    Yields the profiler; on exit writes a Chrome trace to
-    `log_dir`/trace.json."""
+    """torch.profiler context over the CPU and, where there is one, the GPU,
+    with the program's spans on (every public call under it records them,
+    and they stand in the trace beside the caller's events). Yields the
+    profiler; on exit writes a Chrome trace to `log_dir`/trace.json and
+    what summary() gained inside to `log_dir`/summary.json."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    before = summary()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
+    gained = _since(before, summary())
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "summary.json"), "w") as f:
+        json.dump(gained, f, indent=1)
 ''',
 }
 

@@ -10,6 +10,7 @@ import ctypes
 import torch
 
 from ..utils.errors import check_argument, check_state, fail
+from ..utils.timing import start, stop
 
 
 def round_up(n: int, m: int) -> int:
@@ -58,13 +59,17 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args, stream: 
     """Call the library's entry `fn_name` with `args` and `stream` (by
     default the current stream of `device`), with `device` current; raise
     with CUDA's message if the launch was refused. The device is switched
-    only when it is not the current one already."""
-    if stream is None:
-        stream = current_stream(device)
-    if device.index == torch.cuda.current_device():
-        err = getattr(lib, fn_name)(*args, stream)
-    else:
-        with torch.cuda.device(device):
+    only when it is not the current one already. A span glu.launch."""
+    opened = start("glu.launch")
+    try:
+        if stream is None:
+            stream = current_stream(device)
+        if device.index == torch.cuda.current_device():
             err = getattr(lib, fn_name)(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = getattr(lib, fn_name)(*args, stream)
+    finally:
+        stop(opened)
     if err != 0:
         fail("%s failed: %s (cudaError %d)", fn_name, lib.glu_error_string(err).decode(), err)

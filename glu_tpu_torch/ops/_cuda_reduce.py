@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 from ._common import cdiv, current_stream, kernels, launch, on_cuda
 from .reduce import ReduceOperator, _fold, _from_work, _to_work, _work_identity, check_kernel_dtype
 
@@ -117,21 +118,25 @@ def reduce_partitions(x: torch.Tensor, op: ReduceOperator) -> torch.Tensor:
     of a contiguous (P, L) tensor, or each component of each row of a (P, L,
     C) one, under `op`, in one launch. Returns (P,) or (P, C) of x's dtype."""
     global reduce_launches, _lib
-    check_partitions(x, components=True)
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    if not on_cuda(x):
-        return reduce_partitions_ref(x, op)
-    if _lib is None:
-        _lib = kernels(fold_tile=TILE)
-    shape = x.shape
-    parts, length = shape[0], shape[1]
-    comps = shape[2] if len(shape) == 3 else 1
-    ctas = ctas_per_partition(parts, length * comps)
-    dev = x.device
-    stream = current_stream(dev)
-    _, tickets, partials = _scratch_for(dev, stream) if ctas > 1 else (None, None, None)
-    out = x.new_empty(shape[:1] + shape[2:])
-    launch(_lib, "glu_reduce", dev, x.data_ptr(), parts, length, comps, ctas, DTYPE_CODES[x.dtype], op.value,
-           tickets, partials, out.data_ptr(), stream=stream)
-    reduce_launches += 1
-    return out
+    opened = start("glu.engine.k5")
+    try:
+        check_partitions(x, components=True)
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        if not on_cuda(x):
+            return reduce_partitions_ref(x, op)
+        if _lib is None:
+            _lib = kernels(fold_tile=TILE)
+        shape = x.shape
+        parts, length = shape[0], shape[1]
+        comps = shape[2] if len(shape) == 3 else 1
+        ctas = ctas_per_partition(parts, length * comps)
+        dev = x.device
+        stream = current_stream(dev)
+        _, tickets, partials = _scratch_for(dev, stream) if ctas > 1 else (None, None, None)
+        out = x.new_empty(shape[:1] + shape[2:])
+        launch(_lib, "glu_reduce", dev, x.data_ptr(), parts, length, comps, ctas, DTYPE_CODES[x.dtype], op.value,
+               tickets, partials, out.data_ptr(), stream=stream)
+        reduce_launches += 1
+        return out
+    finally:
+        stop(opened)

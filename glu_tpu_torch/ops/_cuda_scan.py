@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 from ._cuda_reduce import DTYPE_CODES, check_partitions
 from .reduce import (
@@ -123,17 +124,21 @@ def exclusive_scan_partitions(x: torch.Tensor, op: ReduceOperator) -> torch.Tens
     of each row of a contiguous (P, L) tensor under `op`, in one launch.
     Returns a new (P, L) tensor of x's dtype."""
     global scan_launches
-    check_partitions(x)
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    if not on_cuda(x):
-        return exclusive_scan_partitions_ref(x, op)
-    parts, length = x.shape
-    tiles = parts * cdiv(length, TILE)
-    check_argument(tiles < 2**31, "too many tiles: %d partitions of %d", parts, length)
-    lib, dev = kernels(scan_tile=TILE), x.device
-    out = torch.empty_like(x)
-    status = torch.zeros(status_words(tiles, x.dtype), dtype=torch.int64, device=dev)
-    launch(lib, "glu_scan_pass", dev, x.data_ptr(), out.data_ptr(), parts, length, DTYPE_CODES[x.dtype], op.value,
-           status.data_ptr())
-    scan_launches += 1
-    return out
+    opened = start("glu.engine.k4")
+    try:
+        check_partitions(x)
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        if not on_cuda(x):
+            return exclusive_scan_partitions_ref(x, op)
+        parts, length = x.shape
+        tiles = parts * cdiv(length, TILE)
+        check_argument(tiles < 2**31, "too many tiles: %d partitions of %d", parts, length)
+        lib, dev = kernels(scan_tile=TILE), x.device
+        out = torch.empty_like(x)
+        status = torch.zeros(status_words(tiles, x.dtype), dtype=torch.int64, device=dev)
+        launch(lib, "glu_scan_pass", dev, x.data_ptr(), out.data_ptr(), parts, length, DTYPE_CODES[x.dtype], op.value,
+               status.data_ptr())
+        scan_launches += 1
+        return out
+    finally:
+        stop(opened)

@@ -31,7 +31,8 @@ in one call to the library.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
-and a plain torch version with the same contract (`*_ref`). A wrapper given
+inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
+plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises. The plain version of a onesweep pass is built from the
 stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
@@ -46,7 +47,7 @@ import functools
 import torch
 
 from ..utils.errors import check_argument
-from ..utils.log import vlog
+from ..utils.timing import start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
 FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
@@ -176,15 +177,20 @@ def digit_histograms(keys: torch.Tensor, groups) -> torch.Tensor:
     BINS)) is the number of keys whose digit of the bits groups[p] (1-8 of
     them, LSB-first) is d."""
     global digit_histograms_launches
-    _check_streams(keys, [])
-    groups = [_check_positions(g, MAX_FIELD_BITS) for g in groups]
-    check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
-    if not on_cuda(keys):
-        return digit_histograms_ref(keys, groups)
-    hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
-    _launch("glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(), *_plan_args(groups), hist.data_ptr())
-    digit_histograms_launches += 1
-    return hist
+    opened = start("glu.engine.onesweep")
+    try:
+        _check_streams(keys, [])
+        groups = [_check_positions(g, MAX_FIELD_BITS) for g in groups]
+        check_argument(1 <= len(groups) <= MAX_PASSES, "want 1..%d passes, got %d", MAX_PASSES, len(groups))
+        if not on_cuda(keys):
+            return digit_histograms_ref(keys, groups)
+        hist = torch.zeros((len(groups), BINS), dtype=torch.int32, device=keys.device)
+        _launch("glu_digit_histograms", keys.device, keys.data_ptr(), keys.numel(), *_plan_args(groups),
+                hist.data_ptr())
+        digit_histograms_launches += 1
+        return hist
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -254,27 +260,32 @@ def onesweep_pass(keys: torch.Tensor, payloads, positions, digit_base: torch.Ten
     output: an exclusive cumsum of digit_histograms' row for this pass.
     Returns (keys, list of payloads)."""
     global onesweep_pass_launches
-    streams = _check_streams(keys, payloads)
-    positions = _check_positions(positions, MAX_FIELD_BITS)
-    shape = (1 << len(positions),)
-    check_argument(
-        digit_base.dtype == torch.int32 and digit_base.is_contiguous() and tuple(digit_base.shape) == shape,
-        "digit_base must be contiguous int32 of shape %s, got %s %s", shape, digit_base.dtype,
-        tuple(digit_base.shape),
-    )
-    check_argument(digit_base.device == keys.device, "digit_base is on %s, keys on %s", digit_base.device, keys.device)
-    if not on_cuda(keys):
-        return onesweep_pass_ref(keys, list(payloads), positions, digit_base)
-    n = keys.numel()
-    outs = [torch.empty_like(s) for s in streams]
-    # a status word per (tile, bin), then the tile counter: zero at launch
-    status = torch.zeros(cdiv(n, TILE) * BINS + 1, dtype=torch.int64, device=keys.device)
-    _launch(
-        "glu_onesweep_pass", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
-        _ints(positions), len(positions), digit_base.data_ptr(), status.data_ptr(),
-    )
-    onesweep_pass_launches += 1
-    return outs[0], outs[1:]
+    opened = start("glu.engine.onesweep")
+    try:
+        streams = _check_streams(keys, payloads)
+        positions = _check_positions(positions, MAX_FIELD_BITS)
+        shape = (1 << len(positions),)
+        check_argument(
+            digit_base.dtype == torch.int32 and digit_base.is_contiguous() and tuple(digit_base.shape) == shape,
+            "digit_base must be contiguous int32 of shape %s, got %s %s", shape, digit_base.dtype,
+            tuple(digit_base.shape),
+        )
+        check_argument(digit_base.device == keys.device, "digit_base is on %s, keys on %s", digit_base.device,
+                       keys.device)
+        if not on_cuda(keys):
+            return onesweep_pass_ref(keys, list(payloads), positions, digit_base)
+        n = keys.numel()
+        outs = [torch.empty_like(s) for s in streams]
+        # a status word per (tile, bin), then the tile counter: zero at launch
+        status = torch.zeros(cdiv(n, TILE) * BINS + 1, dtype=torch.int64, device=keys.device)
+        _launch(
+            "glu_onesweep_pass", keys.device, _pointers(streams), _pointers(outs), len(streams), n,
+            _ints(positions), len(positions), digit_base.data_ptr(), status.data_ptr(),
+        )
+        onesweep_pass_launches += 1
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -345,20 +356,26 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
     MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
     checks and timings give. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
-    streams = _check_streams(keys, payloads)
-    positions, plan = _single_tile_plan(tuple(positions))
-    n = keys.numel()
-    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
-    ctas = single_tile_ctas(n) if ctas is None else ctas
-    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
-                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER, SLICE_MAX,
-                   n, ctas)
-    if not on_cuda(keys):
-        return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
-    outs = [torch.empty_like(s) for s in streams]
-    _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan, ctas)
-    sort_single_tile_launches += 1
-    return outs[0], outs[1:]
+    opened = start("glu.engine.k3")
+    try:
+        streams = _check_streams(keys, payloads)
+        positions, plan = _single_tile_plan(tuple(positions))
+        n = keys.numel()
+        check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX,
+                       n)
+        ctas = single_tile_ctas(n) if ctas is None else ctas
+        check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                       "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
+                       SLICE_MAX, n, ctas)
+        if not on_cuda(keys):
+            return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
+        outs = [torch.empty_like(s) for s in streams]
+        _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan,
+                ctas)
+        sort_single_tile_launches += 1
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +412,7 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     if not positions or n <= 1:
         return keys, payloads
     if n <= SINGLE_TILE_MAX:
-        vlog("radix_sort n=%d: single tile, streams=%d bits=%d", n, 1 + len(payloads), len(positions))
         return sort_single_tile(keys, payloads, positions)
-    vlog("radix_sort n=%d: tiles=%d streams=%d bits=%d", n, cdiv(n, TILE), 1 + len(payloads), len(positions))
     return onesweep_sort(keys, payloads, positions)
 
 
@@ -428,19 +443,25 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
             # rebinding at once frees each pass's input as soon as it is consumed
             keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
         return keys, payloads
-    streams = _check_streams(keys, payloads)
-    groups, plan = _onesweep_plan(tuple(positions))
-    n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
-    outs = [torch.empty_like(s) for s in streams]
-    # one allocation: the scratch streams (more than one pass), then the
-    # work words from a 256-byte boundary (an allocation's own start)
-    tmp_words = -(-len(streams) * n // 64) * 64 if npasses > 1 else 0
-    buf = torch.empty(tmp_words + lib.glu_onesweep_sort_work_words(n, npasses), dtype=torch.int32,
-                      device=keys.device)
-    base = buf.data_ptr()
-    tmp = (ctypes.c_void_p * len(streams))(*[base + 4 * n * i for i in range(len(streams))]) if npasses > 1 else None
-    launch(lib, "glu_onesweep_sort", keys.device, _pointers(streams), _pointers(outs), tmp, len(streams), n, *plan,
-           base + 4 * tmp_words)
-    digit_histograms_launches += 1
-    onesweep_pass_launches += npasses
-    return outs[0], outs[1:]
+    opened = start("glu.engine.onesweep")
+    try:
+        streams = _check_streams(keys, payloads)
+        groups, plan = _onesweep_plan(tuple(positions))
+        n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
+        outs = [torch.empty_like(s) for s in streams]
+        # one allocation: the scratch streams (more than one pass), then the
+        # work words from a 256-byte boundary (an allocation's own start)
+        tmp_words = -(-len(streams) * n // 64) * 64 if npasses > 1 else 0
+        buf = torch.empty(tmp_words + lib.glu_onesweep_sort_work_words(n, npasses), dtype=torch.int32,
+                          device=keys.device)
+        base = buf.data_ptr()
+        tmp = None
+        if npasses > 1:
+            tmp = (ctypes.c_void_p * len(streams))(*[base + 4 * n * i for i in range(len(streams))])
+        launch(lib, "glu_onesweep_sort", keys.device, _pointers(streams), _pointers(outs), tmp, len(streams), n,
+               *plan, base + 4 * tmp_words)
+        digit_histograms_launches += 1
+        onesweep_pass_launches += npasses
+        return outs[0], outs[1:]
+    finally:
+        stop(opened)

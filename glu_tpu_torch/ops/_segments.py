@@ -13,11 +13,14 @@ import numpy as np
 import torch
 
 from ..utils.errors import check_argument
+from ..utils.timing import count
 
 
 def validate_offsets(offsets, n: int, device) -> tuple[torch.Tensor, int]:
     """Returns (the boundaries as an int64 tensor on `device`, S).
-    `offsets` may be a tensor on any device, a numpy array or a list."""
+    `offsets` may be a tensor on any device, a numpy array or a list. Each
+    crossing between the card and the host waits for the card's stream:
+    the boundaries' fetch from a card and their copy onto one."""
     offs = offsets if isinstance(offsets, torch.Tensor) else torch.from_numpy(np.asarray(offsets))
     check_argument(offs.ndim == 1, "offsets must be 1-D")
     check_argument(
@@ -30,4 +33,6 @@ def validate_offsets(offsets, n: int, device) -> tuple[torch.Tensor, int]:
     check_argument(int(h[0]) == 0, "offsets[0] must be 0, got %d", int(h[0]))
     check_argument(int(h[-1]) == n, "offsets[-1] (%d) must equal the array length (%d)", int(h[-1]), n)
     check_argument(bool((h[1:] >= h[:-1]).all()), "offsets must be nondecreasing")
-    return h.to(device), num_segments
+    out = h.to(device)
+    count("host_syncs.offsets", int(offs.is_cuda) + int(out.is_cuda))
+    return out, num_segments

@@ -33,8 +33,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from ..utils.buffers import DeviceBuffer, default_device
 from ..utils.errors import check_argument
+from ..utils.timing import start_call, stop
 from .backend import resolve_backend
 
 RADIX_BITS = 4  # digit width (reference RadixSort.hpp:303: u_radix_shift = step << 2)
@@ -140,6 +142,8 @@ def _key_envelope(words: torch.Tensor, backend: str) -> torch.Tensor:
     first & ~diff."""
     dev = words.device
     if words.numel() == 0:
+        if dev.type == "cuda":
+            timing.count("host_syncs.bits_auto")  # the identity copied onto the card waits for the stream
         return torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64, device=dev)
     if backend == "torch" or words.numel() == 1:
         d = words ^ words[0]
@@ -173,7 +177,10 @@ def _varying_bits(words: torch.Tensor, backend: str) -> tuple:
     host, which synchronises it with the device."""
     if words.numel() <= 1:
         return ()
-    return _envelope_positions(*_key_envelope(words, backend).tolist())
+    with timing.span("glu.bits_auto"):
+        envelope = _key_envelope(words, backend).tolist()
+        timing.count("host_syncs.bits_auto")
+    return _envelope_positions(*envelope)
 
 
 def varying_key_bits(keys: torch.Tensor) -> tuple:
@@ -185,9 +192,13 @@ def varying_key_bits(keys: torch.Tensor) -> tuple:
     captured in a CUDA graph). Feed the result to radix_sort(..., bits=...),
     or pass bits="auto" to fuse the two steps, to sort in ceil(len(bits)/8)
     onesweep passes instead of 4."""
-    check_argument(keys.dim() == 1, "keys must be 1-D")
-    check_argument(keys.dtype == torch.uint32, "keys must be uint32, got %s", keys.dtype)
-    return _varying_bits(keys.view(torch.int32).contiguous(), resolve_backend(None, keys))
+    call = start_call("glu.varying_key_bits")
+    try:
+        check_argument(keys.dim() == 1, "keys must be 1-D")
+        check_argument(keys.dtype == torch.uint32, "keys must be uint32, got %s", keys.dtype)
+        return _varying_bits(keys.view(torch.int32).contiguous(), resolve_backend(None, keys))
+    finally:
+        stop(call)
 
 
 def _norm_steps(num_steps) -> int:
@@ -294,28 +305,36 @@ def radix_sort(
     card's cost model (ops/router.py; on a CPU tensor "cuda"). The route is
     chosen after bits="auto" has found the bits to sort.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    check_argument(
-        not (descending and num_steps not in (0, None, NUM_PASSES)),
-        "descending requires the full sort (num_steps=0)",
-    )
-    if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
-        return keys, values
-    out_k, (out_v,) = _sort_words(
-        _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
-    )
-    return _u32(out_k), _u32(out_v)
+    call = start_call("glu.radix_sort")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        check_argument(
+            not (descending and num_steps not in (0, None, NUM_PASSES)),
+            "descending requires the full sort (num_steps=0)",
+        )
+        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
+            return keys, values
+        out_k, (out_v,) = _sort_words(
+            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
+        )
+        return _u32(out_k), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_keys(keys: torch.Tensor, num_steps: int = 0, *, backend: str | None = None, bits=None):
     """Stably sort u32 keys only (the reference mandates values,
     README.md:88-89; keys-only is a natural extension with the same
     kernels). See radix_sort for `num_steps` and `bits`."""
-    _check_inputs(keys, torch.uint32)
-    if keys.shape[0] <= 1:
-        return keys
-    out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
-    return _u32(out_k)
+    call = start_call("glu.radix_sort_keys")
+    try:
+        _check_inputs(keys, torch.uint32)
+        if keys.shape[0] <= 1:
+            return keys
+        out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
+        return _u32(out_k)
+    finally:
+        stop(call)
 
 
 def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backend: str | None = None, bits=None):
@@ -328,12 +347,16 @@ def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backen
     one write of every stream a pass); past 7 the keys carry an index
     payload and every payload is gathered by it once. See radix_sort for
     `num_steps`, `bits` and when inputs come back as they are."""
-    payloads = tuple(payloads)
-    _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
-    if keys.shape[0] <= 1:
-        return keys, payloads
-    out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
-    return _u32(out_k), tuple(_u32(p) for p in outs)
+    call = start_call("glu.radix_sort_multi")
+    try:
+        payloads = tuple(payloads)
+        _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
+        if keys.shape[0] <= 1:
+            return keys, payloads
+        out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
+        return _u32(out_k), tuple(_u32(p) for p in outs)
+    finally:
+        stop(call)
 
 
 def radix_argsort(keys: torch.Tensor, *, backend: str | None = None, descending: bool = False, bits=None):
@@ -343,13 +366,17 @@ def radix_argsort(keys: torch.Tensor, *, backend: str | None = None, descending:
     permutation" caller otherwise writes by hand (the reference has no
     argsort; test/radix_sort_tests.cpp:111-141 sorts the user's own iota).
     Supports descending= and bits= as radix_sort does."""
-    _check_inputs(keys, torch.uint32)
-    n = keys.shape[0]
-    check_argument(n < (1 << 32), "argsort indices exceed uint32")
-    iota = _u32(torch.arange(n, dtype=torch.int32, device=keys.device))
-    if n <= 1:
-        return keys, iota
-    return radix_sort(keys, iota, backend=backend, descending=descending, bits=bits)
+    call = start_call("glu.radix_argsort")
+    try:
+        _check_inputs(keys, torch.uint32)
+        n = keys.shape[0]
+        check_argument(n < (1 << 32), "argsort indices exceed uint32")
+        iota = _u32(torch.arange(n, dtype=torch.int32, device=keys.device))
+        if n <= 1:
+            return keys, iota
+        return radix_sort(keys, iota, backend=backend, descending=descending, bits=bits)
+    finally:
+        stop(call)
 
 
 def _f32_to_sortable(k: torch.Tensor) -> torch.Tensor:
@@ -379,14 +406,18 @@ def radix_sort_f32(
     with NaNs at the ends by their sign bit. The keys are compared as bit
     patterns, never as floats. `descending` and `bits` refer to the
     TRANSFORMED keys (see radix_sort)."""
-    _check_inputs(keys, torch.float32, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    out_k, (out_v,) = _sort_words(
-        _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
-        bits=bits,
-    )
-    return _sortable_to_f32(out_k), _u32(out_v)
+    call = start_call("glu.radix_sort_f32")
+    try:
+        _check_inputs(keys, torch.float32, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        out_k, (out_v,) = _sort_words(
+            _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
+            bits=bits,
+        )
+        return _sortable_to_f32(out_k), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_i32(
@@ -403,12 +434,16 @@ def radix_sort_i32(
     Signed order rides the u32 engine through the sign-bit flip (an
     order-preserving bijection i32 -> u32: INT32_MIN maps to 0, INT32_MAX to
     UINT32_MAX). `descending` and `bits` refer to the flipped keys."""
-    _check_inputs(keys, torch.int32, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
-                                  bits=bits)
-    return out_k ^ _SIGN, _u32(out_v)
+    call = start_call("glu.radix_sort_i32")
+    try:
+        _check_inputs(keys, torch.int32, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
+                                      bits=bits)
+        return out_k ^ _SIGN, _u32(out_v)
+    finally:
+        stop(call)
 
 
 def _sort_u64_words(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, bits, backend):
@@ -461,11 +496,15 @@ def radix_sort_u64_parts(
     hi word); explicit positions are a PAIR (hi_positions, lo_positions).
     The inputs are not modified; where no bit of either word is sorted they
     come back as they are."""
-    _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
-    if keys_hi.shape[0] <= 1:
-        return keys_hi, keys_lo, values
-    out_hi, out_lo, out_v = _sort_u64_words(_words(keys_hi), _words(keys_lo), values, bits, backend)
-    return _u32(out_hi), _u32(out_lo), _u32(out_v)
+    call = start_call("glu.radix_sort_u64_parts")
+    try:
+        _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
+        if keys_hi.shape[0] <= 1:
+            return keys_hi, keys_lo, values
+        out_hi, out_lo, out_v = _sort_u64_words(_words(keys_hi), _words(keys_lo), values, bits, backend)
+        return _u32(out_hi), _u32(out_lo), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, *, backend: str | None = None, bits=None):
@@ -474,14 +513,19 @@ def radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, *, backend: str | N
     per-word bits= pruning. The words are split and joined as the int32
     pairs the keys are made of (torch implements few operations on uint64),
     one copy each way."""
-    _check_inputs(keys, torch.uint64, values=values)
-    if keys.shape[0] <= 1:
-        return keys, values
-    pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
-    out_hi, out_lo, out_v = _sort_u64_words(pairs[:, 1].contiguous(), pairs[:, 0].contiguous(), values, bits, backend)
-    out = torch.empty_like(pairs)
-    out[:, 0], out[:, 1] = out_lo, out_hi
-    return out.view(torch.uint64).view(-1), _u32(out_v)
+    call = start_call("glu.radix_sort_u64")
+    try:
+        _check_inputs(keys, torch.uint64, values=values)
+        if keys.shape[0] <= 1:
+            return keys, values
+        pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
+        hi, lo = pairs[:, 1].contiguous(), pairs[:, 0].contiguous()
+        out_hi, out_lo, out_v = _sort_u64_words(hi, lo, values, bits, backend)
+        out = torch.empty_like(pairs)
+        out[:, 0], out[:, 1] = out_lo, out_hi
+        return out.view(torch.uint64).view(-1), _u32(out_v)
+    finally:
+        stop(call)
 
 
 def _seg_bits(num_segments: int) -> tuple:
@@ -520,20 +564,24 @@ def radix_sort_segmented(
     the int64 of (segment id, key). bits= prunes the KEY sort (see
     radix_sort); the segment-id sort is already minimal.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    n = keys.shape[0]
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _radix_sort_segmented_offsets(keys, values, offsets, backend, bits)
-    p = int(num_partitions)
-    check_argument(p >= 1, "num_partitions must be >= 1")
-    check_argument(n % p == 0, "count (%d) must divide into %d partitions", n, p)
-    if p == 1:
-        return radix_sort(keys, values, backend=backend, bits=bits)
-    if n <= 1:
-        return keys, values
-    seg = torch.arange(n, dtype=torch.int32, device=keys.device) // (n // p)
-    return _segmented_sort(keys, values, seg, p, backend, bits)
+    call = start_call("glu.radix_sort_segmented")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        n = keys.shape[0]
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _radix_sort_segmented_offsets(keys, values, offsets, backend, bits)
+        p = int(num_partitions)
+        check_argument(p >= 1, "num_partitions must be >= 1")
+        check_argument(n % p == 0, "count (%d) must divide into %d partitions", n, p)
+        if p == 1:
+            return radix_sort(keys, values, backend=backend, bits=bits)
+        if n <= 1:
+            return keys, values
+        seg = torch.arange(n, dtype=torch.int32, device=keys.device) // (n // p)
+        return _segmented_sort(keys, values, seg, p, backend, bits)
+    finally:
+        stop(call)
 
 
 def _radix_sort_segmented_offsets(keys, values, offsets, backend, bits):
@@ -590,17 +638,22 @@ class RadixSort:
     ) -> None:
         """Warm the sort for `count` pairs on `device` (default: the card;
         raises when there is none)."""
-        from .router import _npasses_of, _sort_backend
+        call = start_call("glu.RadixSort.prepare_internal_buffers")
+        try:
+            from .router import _npasses_of, _sort_backend
 
-        k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
-        b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
-        key = (count, b, k.device)
-        if count <= 1 or key in self._warm:
-            return
-        radix_sort(k, torch.zeros_like(k.view(torch.int32)).view(torch.uint32), backend=b)
-        if k.is_cuda:
-            torch.cuda.synchronize(k.device)
-        self._warm.add(key)
+            k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
+            b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
+            key = (count, b, k.device)
+            if count <= 1 or key in self._warm:
+                return
+            radix_sort(k, torch.zeros_like(k.view(torch.int32)).view(torch.uint32), backend=b)
+            if k.is_cuda:
+                timing.count("host_syncs.prepare")
+                torch.cuda.synchronize(k.device)
+            self._warm.add(key)
+        finally:
+            stop(call)
 
     def __call__(
         self,
@@ -611,19 +664,23 @@ class RadixSort:
         *,
         backend: str | None = None,
     ):
-        check_argument(key_buffer is not None, "Invalid key buffer")
-        check_argument(val_buffer is not None, "Invalid value buffer")
-        kdata = key_buffer.data if isinstance(key_buffer, DeviceBuffer) else key_buffer
-        vdata = val_buffer.data if isinstance(val_buffer, DeviceBuffer) else val_buffer
-        check_argument(count <= kdata.shape[0], "count exceeds key buffer size")
-        check_argument(count <= vdata.shape[0], "count exceeds value buffer size")
-        if count <= 1:
-            return kdata[:count], vdata[:count]
-        out_k, out_v = radix_sort(kdata[:count], vdata[:count], num_steps, backend=backend)
-        if isinstance(key_buffer, DeviceBuffer):
-            kdata[:count].view(torch.int32).copy_(out_k.view(torch.int32))
-            out_k = kdata[:count]
-        if isinstance(val_buffer, DeviceBuffer):
-            vdata[:count].view(torch.int32).copy_(out_v.view(torch.int32))
-            out_v = vdata[:count]
-        return out_k, out_v
+        call = start_call("glu.RadixSort")
+        try:
+            check_argument(key_buffer is not None, "Invalid key buffer")
+            check_argument(val_buffer is not None, "Invalid value buffer")
+            kdata = key_buffer.data if isinstance(key_buffer, DeviceBuffer) else key_buffer
+            vdata = val_buffer.data if isinstance(val_buffer, DeviceBuffer) else val_buffer
+            check_argument(count <= kdata.shape[0], "count exceeds key buffer size")
+            check_argument(count <= vdata.shape[0], "count exceeds value buffer size")
+            if count <= 1:
+                return kdata[:count], vdata[:count]
+            out_k, out_v = radix_sort(kdata[:count], vdata[:count], num_steps, backend=backend)
+            if isinstance(key_buffer, DeviceBuffer):
+                kdata[:count].view(torch.int32).copy_(out_k.view(torch.int32))
+                out_k = kdata[:count]
+            if isinstance(val_buffer, DeviceBuffer):
+                vdata[:count].view(torch.int32).copy_(out_v.view(torch.int32))
+                out_v = vdata[:count]
+            return out_k, out_v
+        finally:
+            stop(call)

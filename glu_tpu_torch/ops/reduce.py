@@ -29,6 +29,7 @@ import torch
 from ..utils.buffers import DeviceBuffer, _words
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
+from ..utils.timing import start_call, stop
 
 
 class ReduceOperator(enum.Enum):
@@ -172,13 +173,17 @@ def reduce(x: torch.Tensor, op: ReduceOperator = ReduceOperator.SUM, *, backend:
     card's cost model (ops/router.py::_reduce_backend; on a CPU tensor
     "cuda").
     """
-    from .router import _reduce_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
+    call = start_call("glu.reduce")
+    try:
+        from .router import _reduce_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
 
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", tuple(x.shape))
-    check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
-    check_kernel_dtype(x.dtype)
-    return _reduce_impl(x, op, _reduce_backend(backend, x))
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", tuple(x.shape))
+        check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
+        check_kernel_dtype(x.dtype)
+        return _reduce_impl(x, op, _reduce_backend(backend, x))
+    finally:
+        stop(call)
 
 
 def segmented_reduce(
@@ -201,29 +206,33 @@ def segmented_reduce(
     inclusive_scan, which has no router (as in the JAX package): None is
     the override GLU_TPU_TORCH_BACKEND or "cuda".
     """
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_argument(x.ndim == 1, "segmented_reduce expects a 1-D array, got shape %s", tuple(x.shape))
-    check_kernel_dtype(x.dtype)
-    from ._segments import validate_offsets
+    call = start_call("glu.segmented_reduce")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_argument(x.ndim == 1, "segmented_reduce expects a 1-D array, got shape %s", tuple(x.shape))
+        check_kernel_dtype(x.dtype)
+        from ._segments import validate_offsets
 
-    n = x.shape[0]
-    offs, num_segments = validate_offsets(offsets, n, x.device)
-    ident = identity_for(op, x.dtype)
-    if n == 0:
-        return _full((num_segments,), ident, x.dtype, x.device)
-    if op != ReduceOperator.SUM or x.dtype.is_floating_point:
-        from .scan import _flagged_scan, _segment_start_flags
+        n = x.shape[0]
+        offs, num_segments = validate_offsets(offsets, n, x.device)
+        ident = identity_for(op, x.dtype)
+        if n == 0:
+            return _full((num_segments,), ident, x.dtype, x.device)
+        if op != ReduceOperator.SUM or x.dtype.is_floating_point:
+            from .scan import _flagged_scan, _segment_start_flags
 
-        incl = _words(_flagged_scan(x, _segment_start_flags(offs, n), op, inclusive=True))
-        picked = incl[(offs[1:] - 1).clamp(min=0)]
-        empty = torch.full((), ident, dtype=picked.dtype, device=x.device)
-        return torch.where(offs[1:] > offs[:-1], picked, empty).view(x.dtype)
-    from .scan import inclusive_scan
+            incl = _words(_flagged_scan(x, _segment_start_flags(offs, n), op, inclusive=True))
+            picked = incl[(offs[1:] - 1).clamp(min=0)]
+            empty = torch.full((), ident, dtype=picked.dtype, device=x.device)
+            return torch.where(offs[1:] > offs[:-1], picked, empty).view(x.dtype)
+        from .scan import inclusive_scan
 
-    incl = _words(inclusive_scan(x, op=op, backend=backend))
-    # prefix value BEFORE each boundary: 0 at boundary 0, incl[o-1] else
-    pref = torch.where(offs > 0, incl[(offs - 1).clamp(min=0)], torch.zeros((), dtype=incl.dtype, device=x.device))
-    return (pref[1:] - pref[:-1]).view(x.dtype)
+        incl = _words(inclusive_scan(x, op=op, backend=backend))
+        # prefix value BEFORE each boundary: 0 at boundary 0, incl[o-1] else
+        pref = torch.where(offs > 0, incl[(offs - 1).clamp(min=0)], torch.zeros((), dtype=incl.dtype, device=x.device))
+        return (pref[1:] - pref[:-1]).view(x.dtype)
+    finally:
+        stop(call)
 
 
 class Reduce:
@@ -243,10 +252,14 @@ class Reduce:
         self.operator = operator
 
     def __call__(self, buffer: DeviceBuffer | torch.Tensor, count: int, *, backend: str | None = None):
-        data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
-        check_argument(count >= 1, "Count must be >= 1")
-        check_argument(count <= data.shape[0], "count %d exceeds buffer size %d", count, data.shape[0])
-        result = reduce(data[:count], self.operator, backend=backend)
-        if isinstance(buffer, DeviceBuffer):
-            _words(data[0]).copy_(_words(result))
-        return result
+        call = start_call("glu.Reduce")
+        try:
+            data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
+            check_argument(count >= 1, "Count must be >= 1")
+            check_argument(count <= data.shape[0], "count %d exceeds buffer size %d", count, data.shape[0])
+            result = reduce(data[:count], self.operator, backend=backend)
+            if isinstance(buffer, DeviceBuffer):
+                _words(data[0]).copy_(_words(result))
+            return result
+        finally:
+            stop(call)

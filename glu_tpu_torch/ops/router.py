@@ -61,6 +61,7 @@ import torch
 
 from ..utils.errors import check_argument
 from ..utils.log import vlog
+from ..utils.timing import count, start, stop
 from . import _cuda_sort as cs
 from . import backend as _backend
 
@@ -310,20 +311,31 @@ def _faster(torch_s: float, cuda_s: float) -> str:
     return "torch" if torch_s * (1 + TORCH_MARGIN) < cuda_s else "cuda"
 
 
+def _routed(op: str, backend: str) -> str:
+    """Counts the route of one decision (route.<op>.<backend>) and returns it."""
+    count(f"route.{op}.{backend}")
+    return backend
+
+
 def _sort_backend(backend, tensor: torch.Tensor, n: int, num_streams: int, npasses: int,
                   full_cover: bool | None = None) -> str:
     """The backend of a sort of n keys of `tensor` with num_streams
     payloads in npasses 8-bit passes; full_cover: whether the sorted bits
     are the whole key (default: 4 passes), else the "torch" backend masks
     the key first. Routed only where ops/backend.py::routable says so."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    if num_streams >= cs.MAX_STREAMS:  # both backends sort an index and gather the payloads by it
-        num_streams = 1
-    if full_cover is None:
-        full_cover = npasses >= cs.MAX_PASSES
-    return _faster(_torch_sort_est_s(m, n, num_streams, full_cover), _cuda_sort_est_s(m, n, num_streams, npasses))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("sort", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        if num_streams >= cs.MAX_STREAMS:  # both backends sort an index and gather the payloads by it
+            num_streams = 1
+        if full_cover is None:
+            full_cover = npasses >= cs.MAX_PASSES
+        torch_s = _torch_sort_est_s(m, n, num_streams, full_cover)
+        return _routed("sort", _faster(torch_s, _cuda_sort_est_s(m, n, num_streams, npasses)))
+    finally:
+        stop(opened)
 
 
 def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, extra_ops: int) -> str:
@@ -331,11 +343,15 @@ def _u64_backend(backend, tensor: torch.Tensor, n: int, p_hi: int, p_lo: int, ex
     the engine chains a sort of the low word and one of the high word, each
     carrying 2 payloads, in p_lo and p_hi passes (0: no bit of that word is
     sorted); "torch" sorts once on the int64 key, masking `extra_ops` words."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    torch_s = _table_s(m.torch["u64"], n) + extra_ops * _compact_s(m, n)
-    return _faster(torch_s, _chain_est_s(m, n, (2, p_lo), (2, p_hi)))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("u64", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        torch_s = _table_s(m.torch["u64"], n) + extra_ops * _compact_s(m, n)
+        return _routed("u64", _faster(torch_s, _chain_est_s(m, n, (2, p_lo), (2, p_hi))))
+    finally:
+        stop(opened)
 
 
 def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, seg_passes: int,
@@ -344,11 +360,15 @@ def _segmented_backend(backend, tensor: torch.Tensor, n: int, key_passes: int, s
     sort (key_passes) and the segment-id sort (seg_passes), each carrying 2
     payloads; "torch" sorts once on the int64 of (segment id, key), masking
     the key unless full_cover."""
-    if not _backend.routable(backend, tensor):
-        return _backend.resolve_backend(backend, tensor)
-    m = _cost_model(tensor.device)
-    torch_s = _table_s(m.torch["segmented"], n) + (0.0 if full_cover else _compact_s(m, n))
-    return _faster(torch_s, _chain_est_s(m, n, (2, key_passes), (2, seg_passes)))
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, tensor):
+            return _routed("segmented", _backend.resolve_backend(backend, tensor))
+        m = _cost_model(tensor.device)
+        torch_s = _table_s(m.torch["segmented"], n) + (0.0 if full_cover else _compact_s(m, n))
+        return _routed("segmented", _faster(torch_s, _chain_est_s(m, n, (2, key_passes), (2, seg_passes))))
+    finally:
+        stop(opened)
 
 
 def _reduce_backend(backend, x: torch.Tensor) -> str:
@@ -356,9 +376,13 @@ def _reduce_backend(backend, x: torch.Tensor) -> str:
     reduce_torch_max_n elements (the calibration's sizes up to which
     torch's call beat K5 at every one in every reading; 0 where it did not
     at the smallest, which makes this the constant "cuda"), "cuda" above. segmented_reduce is not routed: its integer SUM is a scan."""
-    if not _backend.routable(backend, x):
-        return _backend.resolve_backend(backend, x)
-    return "torch" if x.numel() <= _cost_model(x.device).reduce_torch_max_n else "cuda"
+    opened = start("glu.route")
+    try:
+        if not _backend.routable(backend, x):
+            return _routed("reduce", _backend.resolve_backend(backend, x))
+        return _routed("reduce", "torch" if x.numel() <= _cost_model(x.device).reduce_torch_max_n else "cuda")
+    finally:
+        stop(opened)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from ..utils.buffers import DeviceBuffer, _words
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
 from ..utils.math import is_power_of_2
+from ..utils.timing import count, start_call, stop
 from .backend import resolve_backend
 from .reduce import (
     ReduceOperator,
@@ -97,8 +98,11 @@ def _segment_start_flags(offs: torch.Tensor, n: int) -> torch.Tensor:
     Element 0 always starts a segment."""
     inner = offs[1:-1]
     flags = torch.zeros(n, dtype=torch.bool, device=offs.device)
+    count("host_syncs.offsets_mask")  # a boolean mask's selection fetches its count
     flags[inner[inner < n]] = True
     flags[0] = True
+    if flags.is_cuda:
+        count("host_syncs.scalar_write", 2)  # each write of a Python scalar copies it onto the card
     return flags
 
 
@@ -147,6 +151,7 @@ def _segmented_scan_offsets(x, offsets, op, backend, inclusive: bool) -> torch.T
     incs = vals.clone()
     incs[1:] -= vals[:-1]
     keep = offs[:-1] < n
+    count("host_syncs.offsets_mask", 2)  # each boolean mask's selection fetches its count
     sparse = torch.zeros(n, dtype=torch.int32, device=x.device).index_add_(0, offs[:-1][keep], incs[keep])
     base = _scan_impl(sparse, 1, ReduceOperator.SUM, backend) + sparse  # inclusive
     out = b - base
@@ -179,11 +184,15 @@ def exclusive_scan(
     the override GLU_TPU_TORCH_BACKEND or "cuda" (the scans have no router,
     as in the JAX package).
     """
-    _check_scan_args(x, num_partitions, op)
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=False)
-    return _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+    call = start_call("glu.exclusive_scan")
+    try:
+        _check_scan_args(x, num_partitions, op)
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _segmented_scan_offsets(x, offsets, op, backend, inclusive=False)
+        return _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+    finally:
+        stop(call)
 
 
 def inclusive_scan(
@@ -198,12 +207,16 @@ def inclusive_scan(
     partition, derived as `op(exclusive, x)` elementwise, exact for every
     operator (wrapping u32 sums and products included). See exclusive_scan
     for the arguments."""
-    _check_scan_args(x, num_partitions, op)
-    if offsets is not None:
-        check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=True)
-    exc = _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
-    return combine_fn(op)(exc, x)
+    call = start_call("glu.inclusive_scan")
+    try:
+        _check_scan_args(x, num_partitions, op)
+        if offsets is not None:
+            check_argument(num_partitions in (1, None), "offsets and num_partitions are mutually exclusive")
+            return _segmented_scan_offsets(x, offsets, op, backend, inclusive=True)
+        exc = _scan_impl(x, num_partitions, op, resolve_backend(backend, x))
+        return combine_fn(op)(exc, x)
+    finally:
+        stop(call)
 
 
 class BlellochScan:
@@ -232,21 +245,25 @@ class BlellochScan:
         *,
         backend: str | None = None,
     ):
-        data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
-        check_argument(count >= 1, "Count must be >= 1")
-        check_argument(is_power_of_2(count), "Count must be a power of 2 (got %d)", count)
-        if self.info.components > 1:
+        call = start_call("glu.BlellochScan")
+        try:
+            data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
+            check_argument(count >= 1, "Count must be >= 1")
+            check_argument(is_power_of_2(count), "Count must be a power of 2 (got %d)", count)
+            if self.info.components > 1:
+                check_argument(
+                    data.ndim == 2 and data.shape[1] == self.info.components,
+                    "%s buffers carry components in the trailing axis (N, %d), got shape %s",
+                    self.info.name, self.info.components, tuple(data.shape),
+                )
+            total = count * num_partitions
             check_argument(
-                data.ndim == 2 and data.shape[1] == self.info.components,
-                "%s buffers carry components in the trailing axis (N, %d), got shape %s",
-                self.info.name, self.info.components, tuple(data.shape),
+                total <= data.shape[0], "count*num_partitions %d exceeds buffer size %d", total, data.shape[0]
             )
-        total = count * num_partitions
-        check_argument(
-            total <= data.shape[0], "count*num_partitions %d exceeds buffer size %d", total, data.shape[0]
-        )
-        result = exclusive_scan(data[:total], num_partitions, self.operator, backend=backend)
-        if isinstance(buffer, DeviceBuffer):
-            _words(data[:total]).copy_(_words(result))
-            return data[:total]
-        return result
+            result = exclusive_scan(data[:total], num_partitions, self.operator, backend=backend)
+            if isinstance(buffer, DeviceBuffer):
+                _words(data[:total]).copy_(_words(result))
+                return data[:total]
+            return result
+        finally:
+            stop(call)

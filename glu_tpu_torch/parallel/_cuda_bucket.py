@@ -31,6 +31,7 @@ import torch
 from ..ops._common import kernels, launch, on_cuda
 from ..ops.radix_sort import _SIGN
 from ..utils.errors import check_argument
+from ..utils.timing import start, stop
 
 # Splitters staged in shared memory, fixed at compile time in csrc/bucket.cu
 # (kSmemSplitters) and checked when the library is loaded; more are searched
@@ -115,10 +116,14 @@ def bucket_of(words: torch.Tensor, base: int, s_words: torch.Tensor, s_idx: torc
     `words`, the count of the D - 1 splitters (s_words[j] u32, s_idx[j]
     int64), in non-decreasing lexicographic order, that are <= (words[i],
     base + i). Returns n int32, in one launch on a CUDA tensor."""
-    _check([words], base, [s_words], s_idx)
-    if not on_cuda(words):
-        return bucket_of_ref(words, base, s_words, s_idx)
-    return _launch("glu_bucket_of", [words], base, [s_words], s_idx)
+    opened = start("glu.engine.kb")
+    try:
+        _check([words], base, [s_words], s_idx)
+        if not on_cuda(words):
+            return bucket_of_ref(words, base, s_words, s_idx)
+        return _launch("glu_bucket_of", [words], base, [s_words], s_idx)
+    finally:
+        stop(opened)
 
 
 def bucket_of64(hi: torch.Tensor, lo: torch.Tensor, base: int, s_hi: torch.Tensor, s_lo: torch.Tensor,
@@ -126,7 +131,11 @@ def bucket_of64(hi: torch.Tensor, lo: torch.Tensor, base: int, s_hi: torch.Tenso
     """KB's 64-bit form (replaces dist_sort.py::_bucket_of64): the same count
     under lexicographic (hi, lo, global index) order, keys given as u32
     words."""
-    _check([hi, lo], base, [s_hi, s_lo], s_idx)
-    if not on_cuda(hi):
-        return bucket_of64_ref(hi, lo, base, s_hi, s_lo, s_idx)
-    return _launch("glu_bucket_of64", [hi, lo], base, [s_hi, s_lo], s_idx)
+    opened = start("glu.engine.kb")
+    try:
+        _check([hi, lo], base, [s_hi, s_lo], s_idx)
+        if not on_cuda(hi):
+            return bucket_of64_ref(hi, lo, base, s_hi, s_lo, s_idx)
+        return _launch("glu_bucket_of64", [hi, lo], base, [s_hi, s_lo], s_idx)
+    finally:
+        stop(opened)

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from ..ops.reduce import ReduceOperator, _full, check_kernel_dtype, combine_fn, identity_for, reduce
 from ..ops.scan import exclusive_scan
 from ..utils.errors import check_argument, check_state
+from ..utils.timing import count, span, start_call, stop
 
 _SERVES = {"nccl": "cuda", "gloo": "cpu"}  # backend -> the device type its collectives take
 
@@ -77,14 +78,17 @@ def _check_1d_sharded(x: torch.Tensor, group):
     """(group, rank, world size) after checking that x is a 1-D tensor on a
     device the group serves and that every rank's shard has x's length: one
     all_gather of the lengths (and a host sync), after which every rank
-    raises together. One rank has nothing to compare."""
+    raises together. One rank has nothing to compare. A span glu.dist.check."""
     check_argument(x.ndim == 1, "expected a 1-D shard, got shape %s", tuple(x.shape))
     group = _resolve_group(group)
     _check_device(x, group)
     if dist.get_world_size(group) == 1:
         return group, 0, 1
-    length = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    lengths = _all_gather(length, group).view(-1).tolist()
+    with span("glu.dist.check"):
+        length = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+        lengths = _all_gather(length, group).view(-1).tolist()
+        # the lengths' fetch, and on the card the copy of this rank's length onto it
+        count("host_syncs.dist_check", 1 + int(length.is_cuda))
     check_argument(len(set(lengths)) == 1, "shards must have equal lengths, got %s by rank", lengths)
     return group, dist.get_rank(group), len(lengths)
 
@@ -100,16 +104,20 @@ def distributed_reduce(
     one global scalar, the same 0-d tensor on every rank. x is this rank's
     shard. Wrapping u32 sum/mul semantics match the single-card reduce;
     `backend` goes to it."""
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_kernel_dtype(x.dtype)
-    group, _, world = _check_1d_sharded(x, group)
-    check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
-    combine = combine_fn(op)
-    partials = _all_gather(reduce(x, op, backend=backend).reshape(1), group)[:, 0]  # (D,) tiny
-    total = partials[0]
-    for d in range(1, world):
-        total = combine(total, partials[d])
-    return total
+    call = start_call("glu.distributed_reduce")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_kernel_dtype(x.dtype)
+        group, _, world = _check_1d_sharded(x, group)
+        check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
+        combine = combine_fn(op)
+        partials = _all_gather(reduce(x, op, backend=backend).reshape(1), group)[:, 0]  # (D,) tiny
+        total = partials[0]
+        for d in range(1, world):
+            total = combine(total, partials[d])
+        return total
+    finally:
+        stop(call)
 
 
 def distributed_exclusive_scan(
@@ -123,19 +131,23 @@ def distributed_exclusive_scan(
     sharded the same way on output: element i of this rank's shard receives
     the op-fold of the elements before it in GLOBAL order (rank-major
     shards, the distributed sort's index convention)."""
-    check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
-    check_kernel_dtype(x.dtype)
-    group, rank, _ = _check_1d_sharded(x, group)
-    if x.shape[0] == 0:
-        return torch.empty_like(x)
-    combine = combine_fn(op)
-    local_exc = exclusive_scan(x, 1, op, backend=backend)
-    # shard total = op(exclusive[-1], x[-1]): no second reduction
-    totals = _all_gather(combine(local_exc[-1:], x[-1:]), group)[:, 0]  # (D,) tiny
-    prefix = _full((), identity_for(op, x.dtype), x.dtype, x.device)
-    for d in range(rank):
-        prefix = combine(prefix, totals[d])
-    return combine(local_exc, prefix)
+    call = start_call("glu.distributed_exclusive_scan")
+    try:
+        check_argument(isinstance(op, ReduceOperator), "Invalid operator: %s", op)
+        check_kernel_dtype(x.dtype)
+        group, rank, _ = _check_1d_sharded(x, group)
+        if x.shape[0] == 0:
+            return torch.empty_like(x)
+        combine = combine_fn(op)
+        local_exc = exclusive_scan(x, 1, op, backend=backend)
+        # shard total = op(exclusive[-1], x[-1]): no second reduction
+        totals = _all_gather(combine(local_exc[-1:], x[-1:]), group)[:, 0]  # (D,) tiny
+        prefix = _full((), identity_for(op, x.dtype), x.dtype, x.device)
+        for d in range(rank):
+            prefix = combine(prefix, totals[d])
+        return combine(local_exc, prefix)
+    finally:
+        stop(call)
 
 
 def distributed_inclusive_scan(
@@ -147,5 +159,9 @@ def distributed_inclusive_scan(
 ) -> torch.Tensor:
     """Inclusive variant: `op(exclusive, x)` elementwise (exact for every
     operator, wrapping arithmetic included)."""
-    exc = distributed_exclusive_scan(x, group, op, backend=backend)
-    return combine_fn(op)(exc, x)
+    call = start_call("glu.distributed_inclusive_scan")
+    try:
+        exc = distributed_exclusive_scan(x, group, op, backend=backend)
+        return combine_fn(op)(exc, x)
+    finally:
+        stop(call)

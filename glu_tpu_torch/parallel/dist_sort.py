@@ -73,6 +73,7 @@ from ..ops.radix_sort import (
     radix_sort_u64_parts,
 )
 from ..utils.errors import check_argument
+from ..utils.timing import count, span, start_call, stop
 from ._cuda_bucket import bucket_of, bucket_of64, bucket_of64_ref, bucket_of_ref, ordered, wide_key
 from .dist_primitives import _all_gather, _check_1d_sharded, _resolve_group
 
@@ -239,25 +240,32 @@ def _exchange_and_sort(arrays, bucket, local_sort, *, group, rank: int, num_devi
     async all_to_all_single per stream, issued before the next chunk is
     partitioned so that the two overlap. Once every transfer is waited on,
     the blocks are placed source-major, chunk-minor and sorted by
-    `local_sort`. Returns (sorted streams, counts (D,) int32)."""
+    `local_sort`. Returns (sorted streams, counts (D,) int32). Spans: a
+    chunk's glu.dist.partition, glu.dist.counts and glu.dist.exchange, then
+    glu.dist.place, glu.dist.local_sort and glu.dist.total (the counts'
+    copy onto the card); the counter dist.bytes_sent counts the bytes this
+    rank sends to the others."""
     chunk_len = bucket.shape[0] // num_chunks
     received = [[] for _ in arrays]  # [stream][chunk]: (what arrived, its sizes by source)
     total = torch.zeros(num_devices, dtype=torch.int32)
     pending = []
     for c in range(num_chunks):
         cut = slice(c * chunk_len, (c + 1) * chunk_len)
-        parts, counts, _ = _partition_by_bucket(bucket[cut], [a[cut] for a in arrays], num_devices, backend)
-        rows = _all_gather(counts, group).cpu()  # (source, destination)
-        _, sizes, total_c = ragged_exchange_plan(rows, int(rows.sum()))  # exact: nothing is clamped
-        send, recv = rows[rank].tolist(), sizes[:, rank].tolist()
-        total += total_c
-        for stream, part in enumerate(parts):
-            out = torch.empty(sum(recv), dtype=torch.int32, device=part.device)
-            work = dist.all_to_all_single(out, _words(part), recv, send, group=group, async_op=True)
-            pending.append((work, part))
-            received[stream].append((out, recv))
-    for work, _ in pending:
-        work.wait()
+        with span("glu.dist.partition"):
+            parts, counts, _ = _partition_by_bucket(bucket[cut], [a[cut] for a in arrays], num_devices, backend)
+        with span("glu.dist.counts"):
+            rows = _all_gather(counts, group).cpu()  # (source, destination)
+            count("host_syncs.dist_counts")
+        with span("glu.dist.exchange"):
+            _, sizes, total_c = ragged_exchange_plan(rows, int(rows.sum()))  # exact: nothing is clamped
+            send, recv = rows[rank].tolist(), sizes[:, rank].tolist()
+            total += total_c
+            for stream, part in enumerate(parts):
+                out = torch.empty(sum(recv), dtype=torch.int32, device=part.device)
+                work = dist.all_to_all_single(out, _words(part), recv, send, group=group, async_op=True)
+                pending.append((work, part))
+                received[stream].append((out, recv))
+            count("dist.bytes_sent", 4 * len(parts) * (sum(send) - send[rank]))
 
     def placed(chunks):
         # the plan over (source, chunk) rows puts block (s, c) at the running
@@ -267,7 +275,17 @@ def _exchange_and_sort(arrays, bucket, local_sort, *, group, rank: int, num_devi
         blocks = [out.split(recv) for out, recv in chunks]
         return _u32(torch.cat([blocks[c][s] for s in range(num_devices) for c in range(num_chunks)]))
 
-    return list(local_sort(*map(placed, received))), total.to(bucket.device)
+    with span("glu.dist.place"):
+        for work, _ in pending:
+            work.wait()
+        streams = [placed(chunks) for chunks in received]
+    with span("glu.dist.local_sort"):
+        result = list(local_sort(*streams))
+    with span("glu.dist.total"):
+        total = total.to(bucket.device)
+        if total.is_cuda:
+            count("host_syncs.dist_total")  # the counts' copy onto the card waits for its stream
+    return result, total
 
 
 def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices: int, num_samples: int,
@@ -277,11 +295,14 @@ def _dist_sort_shard(keys, values, local_sort, *, group, rank: int, num_devices:
     sort. Returns ([keys, values], counts)."""
     dev = keys.device
     if num_devices == 1:
-        return list(local_sort(keys, values)), torch.full((1,), keys.shape[0], dtype=torch.int32, device=dev)
-    samples, idx = _local_samples(keys, rank, num_samples)
-    sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
-                               num_devices)
-    bucket = _bucket_of(keys, rank, sk, si, backend)
+        with span("glu.dist.local_sort"):
+            return list(local_sort(keys, values)), torch.full((1,), keys.shape[0], dtype=torch.int32, device=dev)
+    with span("glu.dist.splitters"):
+        samples, idx = _local_samples(keys, rank, num_samples)
+        sk, si = _sample_splitters(_all_gather(samples, group).reshape(-1), _all_gather(idx, group).reshape(-1),
+                                   num_devices)
+    with span("glu.dist.bucket"):
+        bucket = _bucket_of(keys, rank, sk, si, backend)
     return _exchange_and_sort([keys, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -292,11 +313,14 @@ def _dist_sort_shard64(hi, lo, values, local_sort, *, group, rank: int, num_devi
     values], counts)."""
     dev = hi.device
     if num_devices == 1:
-        return list(local_sort(hi, lo, values)), torch.full((1,), hi.shape[0], dtype=torch.int32, device=dev)
-    s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
-    gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
-    shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
-    bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
+        with span("glu.dist.local_sort"):
+            return list(local_sort(hi, lo, values)), torch.full((1,), hi.shape[0], dtype=torch.int32, device=dev)
+    with span("glu.dist.splitters"):
+        s_hi, s_lo, idx = _local_samples64(hi, lo, rank, num_samples)
+        gathered = [_all_gather(t, group).reshape(-1) for t in (s_hi, s_lo, idx)]
+        shi, slo, sidx = _sample_splitters64(*gathered, num_devices)
+    with span("glu.dist.bucket"):
+        bucket = _bucket_of64(hi, lo, rank, shi, slo, sidx, backend)
     return _exchange_and_sort([hi, lo, values], bucket, local_sort, group=group, rank=rank,
                               num_devices=num_devices, backend=backend, num_chunks=num_chunks)
 
@@ -305,8 +329,10 @@ def _global_positions(key_words, group, backend):
     """bits="auto" over the GLOBAL array: each rank's (OR, AND) envelope of
     every key word, one all_gather, folded on the host (NCCL has no bitwise
     reduce op). Returns the positions of each word."""
-    env = torch.cat([_key_envelope(_words(w), resolve_backend(backend, w)) for w in key_words])
-    rows = _all_gather(env, group).tolist()  # (D, 2 * words): a host sync
+    with span("glu.bits_auto"):
+        env = torch.cat([_key_envelope(_words(w), resolve_backend(backend, w)) for w in key_words])
+        rows = _all_gather(env, group).tolist()  # (D, 2 * words): a host sync
+        count("host_syncs.dist_bits_auto")
     positions = []
     for j in range(len(key_words)):
         or_word, and_word = 0, 0xFFFFFFFF
@@ -359,28 +385,32 @@ def distributed_radix_sort(
     (an envelope a rank, one all_gather and a host sync), to which every
     rank's local sort prunes; splitters order by the full key.
     """
-    _check_inputs(keys, torch.uint32, values=values)
-    _check_common(num_samples, backend)
-    group, rank, world = _check_1d_sharded(keys, group)
-    local_n = keys.shape[0]
-    chunks = _resolve_chunks(pipeline_chunks, world, local_n)
-    words = ~_words(keys) if descending else _words(keys)  # NOT reverses u32 order; stability is kept
-    if bits == "auto":
-        positions = _global_positions([words], group, backend)[0]
-    else:
-        positions = _norm_bits(bits, words, 0, backend)
-    dev = keys.device
-    overflow = torch.zeros(world, dtype=torch.int32, device=dev)
-    if local_n == 0:
-        return keys, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
-    (out_k, out_v), counts = _dist_sort_shard(
-        _u32(words), values, lambda k, v: radix_sort(k, v, backend=backend, bits=positions),
-        group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
-        backend=backend, num_chunks=chunks,
-    )
-    if descending:
-        out_k = _u32(~_words(out_k))
-    return out_k, out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort")
+    try:
+        _check_inputs(keys, torch.uint32, values=values)
+        _check_common(num_samples, backend)
+        group, rank, world = _check_1d_sharded(keys, group)
+        local_n = keys.shape[0]
+        chunks = _resolve_chunks(pipeline_chunks, world, local_n)
+        words = ~_words(keys) if descending else _words(keys)  # NOT reverses u32 order; stability is kept
+        if bits == "auto":
+            positions = _global_positions([words], group, backend)[0]
+        else:
+            positions = _norm_bits(bits, words, 0, backend)
+        dev = keys.device
+        overflow = torch.zeros(world, dtype=torch.int32, device=dev)
+        if local_n == 0:
+            return keys, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
+        (out_k, out_v), counts = _dist_sort_shard(
+            _u32(words), values, lambda k, v: radix_sort(k, v, backend=backend, bits=positions),
+            group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
+            backend=backend, num_chunks=chunks,
+        )
+        if descending:
+            out_k = _u32(~_words(out_k))
+        return out_k, out_v, counts, overflow
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_f32(keys: torch.Tensor, values: torch.Tensor, group=None, *, descending: bool = False,
@@ -390,10 +420,14 @@ def distributed_radix_sort_f32(keys: torch.Tensor, values: torch.Tensor, group=N
     order: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN). The
     bijection is monotonic, so splitters, buckets and every rank's range
     carry over. Same contract as distributed_radix_sort, with float32 keys."""
-    _check_inputs(keys, torch.float32, values=values)
-    out = distributed_radix_sort(_u32(_f32_to_sortable(keys.contiguous().view(torch.int32))), values, group,
-                                 descending=descending, **kwargs)
-    return (_sortable_to_f32(_words(out[0])), *out[1:])
+    call = start_call("glu.distributed_radix_sort_f32")
+    try:
+        _check_inputs(keys, torch.float32, values=values)
+        out = distributed_radix_sort(_u32(_f32_to_sortable(keys.contiguous().view(torch.int32))), values, group,
+                                     descending=descending, **kwargs)
+        return (_sortable_to_f32(_words(out[0])), *out[1:])
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_i32(keys: torch.Tensor, values: torch.Tensor, group=None, *, descending: bool = False,
@@ -401,9 +435,13 @@ def distributed_radix_sort_i32(keys: torch.Tensor, values: torch.Tensor, group=N
     """Globally sort i32 (key, value) pairs sharded over `group`, via the
     sign-bit flip of radix_sort_i32 (an order-preserving bijection onto
     u32). Same contract as distributed_radix_sort, with int32 keys."""
-    _check_inputs(keys, torch.int32, values=values)
-    out = distributed_radix_sort(_u32(keys.contiguous() ^ _SIGN), values, group, descending=descending, **kwargs)
-    return (_words(out[0]) ^ _SIGN, *out[1:])
+    call = start_call("glu.distributed_radix_sort_i32")
+    try:
+        _check_inputs(keys, torch.int32, values=values)
+        out = distributed_radix_sort(_u32(keys.contiguous() ^ _SIGN), values, group, descending=descending, **kwargs)
+        return (_words(out[0]) ^ _SIGN, *out[1:])
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_u64_parts(
@@ -425,40 +463,48 @@ def distributed_radix_sort_u64_parts(
     local sort is the chained 32-bit composition. Returns (hi, lo, values,
     counts, overflow). bits: None or "auto", which prunes the constant bits
     of EACH word of the global array."""
-    _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
-    _check_common(num_samples, backend)
-    check_argument(bits in (None, "auto"), 'distributed u64 sorts accept only bits=None or "auto"')
-    group, rank, world = _check_1d_sharded(keys_hi, group)
-    local_n = keys_hi.shape[0]
-    chunks = _resolve_chunks(pipeline_chunks, world, local_n)
-    hi, lo = _words(keys_hi), _words(keys_lo)
-    if descending:  # complementing both words reverses u64 order
-        hi, lo = ~hi, ~lo
-    positions = tuple(_global_positions([hi, lo], group, backend)) if bits == "auto" else None
-    dev = keys_hi.device
-    overflow = torch.zeros(world, dtype=torch.int32, device=dev)
-    if local_n == 0:
-        return keys_hi, keys_lo, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
-    (out_hi, out_lo, out_v), counts = _dist_sort_shard64(
-        _u32(hi), _u32(lo), values,
-        lambda h, l, v: radix_sort_u64_parts(h, l, v, backend=backend, bits=positions),
-        group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
-        backend=backend, num_chunks=chunks,
-    )
-    if descending:
-        out_hi, out_lo = _u32(~_words(out_hi)), _u32(~_words(out_lo))
-    return out_hi, out_lo, out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort_u64_parts")
+    try:
+        _check_inputs(keys_hi, torch.uint32, keys_lo=keys_lo, values=values)
+        _check_common(num_samples, backend)
+        check_argument(bits in (None, "auto"), 'distributed u64 sorts accept only bits=None or "auto"')
+        group, rank, world = _check_1d_sharded(keys_hi, group)
+        local_n = keys_hi.shape[0]
+        chunks = _resolve_chunks(pipeline_chunks, world, local_n)
+        hi, lo = _words(keys_hi), _words(keys_lo)
+        if descending:  # complementing both words reverses u64 order
+            hi, lo = ~hi, ~lo
+        positions = tuple(_global_positions([hi, lo], group, backend)) if bits == "auto" else None
+        dev = keys_hi.device
+        overflow = torch.zeros(world, dtype=torch.int32, device=dev)
+        if local_n == 0:
+            return keys_hi, keys_lo, values, torch.zeros(world, dtype=torch.int32, device=dev), overflow
+        (out_hi, out_lo, out_v), counts = _dist_sort_shard64(
+            _u32(hi), _u32(lo), values,
+            lambda h, l, v: radix_sort_u64_parts(h, l, v, backend=backend, bits=positions),
+            group=group, rank=rank, num_devices=world, num_samples=min(int(num_samples), local_n),
+            backend=backend, num_chunks=chunks,
+        )
+        if descending:
+            out_hi, out_lo = _u32(~_words(out_hi)), _u32(~_words(out_lo))
+        return out_hi, out_lo, out_v, counts, overflow
+    finally:
+        stop(call)
 
 
 def distributed_radix_sort_u64(keys: torch.Tensor, values: torch.Tensor, group=None, **kwargs):
     """Globally sort (u64 key, u32 value) pairs (keys torch.uint64) sharded
     over `group`, via distributed_radix_sort_u64_parts on the int32 pairs
     the keys are made of. Returns (keys, values, counts, overflow)."""
-    _check_inputs(keys, torch.uint64, values=values)
-    pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
-    out_hi, out_lo, out_v, counts, overflow = distributed_radix_sort_u64_parts(
-        _u32(pairs[:, 1].contiguous()), _u32(pairs[:, 0].contiguous()), values, group, **kwargs
-    )
-    out = torch.empty((out_hi.shape[0], 2), dtype=torch.int32, device=out_hi.device)
-    out[:, 0], out[:, 1] = _words(out_lo), _words(out_hi)
-    return out.view(torch.uint64).view(-1), out_v, counts, overflow
+    call = start_call("glu.distributed_radix_sort_u64")
+    try:
+        _check_inputs(keys, torch.uint64, values=values)
+        pairs = keys.contiguous().view(torch.int32).view(-1, 2)  # little-endian: (lo, hi) of each key
+        out_hi, out_lo, out_v, counts, overflow = distributed_radix_sort_u64_parts(
+            _u32(pairs[:, 1].contiguous()), _u32(pairs[:, 0].contiguous()), values, group, **kwargs
+        )
+        out = torch.empty((out_hi.shape[0], 2), dtype=torch.int32, device=out_hi.device)
+        out[:, 0], out[:, 1] = _words(out_lo), _words(out_hi)
+        return out.view(torch.uint64).view(-1), out_v, counts, overflow
+    finally:
+        stop(call)

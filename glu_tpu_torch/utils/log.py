@@ -1,6 +1,8 @@
 """Verbose logging gate (counterpart of glu_tpu/utils/log.py).
 
-GLU_TPU_VERBOSE=1 sends diagnostics to stderr: tile counts, pass layout.
+GLU_TPU_VERBOSE=1 sends diagnostics to stderr: which cost model the router
+loaded, once a process. A sort's path is named by its engine span
+(utils/timing.py).
 """
 
 from __future__ import annotations

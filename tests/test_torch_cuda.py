@@ -778,3 +778,148 @@ def test_measure_elapsed_time_without_device_covers_the_device_work(dev):
         torch.cuda.synchronize()
         events.append(measure_elapsed_time(sort, dev)[0])
     assert sorted(host)[2] >= 0.9 * sorted(events)[2], (host, events)
+
+
+# ---------------------------------------------------------------------------
+# the port's tracing on the card (utils/timing.py)
+# ---------------------------------------------------------------------------
+
+
+def _sync_inputs(n: int, dev):
+    """The calls' inputs, made on the card before anything is counted."""
+    from types import SimpleNamespace
+
+    k = _words("uniform", n, dev).view(torch.uint32)
+    offs = [0, 10, 10, n // 2, n]
+    return SimpleNamespace(n=n, k=k, v=torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32),
+                           f=k.view(torch.int32).to(torch.float32), i=k.view(torch.int32),
+                           w=_words("uniform", 2 * n, dev).view(torch.uint64), m=n // 4 * 4,
+                           offs=offs, card_offs=torch.tensor(offs, device=dev), dev=dev)
+
+
+_SYNC_CALLS = {  # name: a public call of glu_tpu_torch (g) on the inputs (a)
+    "radix_sort": lambda g, a: g.radix_sort(a.k, a.v),
+    "radix_sort bits auto": lambda g, a: g.radix_sort(a.k, a.v, bits="auto"),
+    "radix_sort descending": lambda g, a: g.radix_sort(a.k, a.v, descending=True),
+    "radix_sort_keys bits auto": lambda g, a: g.radix_sort_keys(a.k, bits="auto"),
+    "radix_sort_multi 9 payloads": lambda g, a: g.radix_sort_multi(a.k, [a.v] * 9),
+    "radix_argsort": lambda g, a: g.radix_argsort(a.k),
+    "radix_sort_f32": lambda g, a: g.radix_sort_f32(a.f, a.v),
+    "radix_sort_i32": lambda g, a: g.radix_sort_i32(a.i, a.v),
+    "radix_sort_u64": lambda g, a: g.radix_sort_u64(a.w, a.v),
+    "radix_sort_u64_parts bits auto": lambda g, a: g.radix_sort_u64_parts(a.k, a.v, a.v, bits="auto"),
+    "radix_sort_segmented": lambda g, a: g.radix_sort_segmented(a.k[: a.m], a.v[: a.m], 4),
+    "radix_sort_segmented host offsets": lambda g, a: g.radix_sort_segmented(a.k, a.v, offsets=a.offs),
+    "radix_sort_segmented card offsets": lambda g, a: g.radix_sort_segmented(a.k, a.v, offsets=a.card_offs),
+    "varying_key_bits": lambda g, a: g.varying_key_bits(a.k),
+    "RadixSort": lambda g, a: g.RadixSort()(a.k, a.v, a.n),
+    "RadixSort.prepare_internal_buffers": lambda g, a: g.RadixSort().prepare_internal_buffers(a.n, device=a.dev),
+    "exclusive_scan": lambda g, a: g.exclusive_scan(a.k),
+    "inclusive_scan f32 max": lambda g, a: g.inclusive_scan(a.f, op=ReduceOperator.MAX),
+    "exclusive_scan card offsets": lambda g, a: g.exclusive_scan(a.k, offsets=a.card_offs),
+    "exclusive_scan host offsets max": lambda g, a: g.exclusive_scan(a.k, op=ReduceOperator.MAX, offsets=a.offs),
+    "BlellochScan": lambda g, a: g.BlellochScan(g.DataType.UINT)(a.k, 1 << 12, 2),
+    "reduce": lambda g, a: g.reduce(a.k),
+    "reduce f64 max": lambda g, a: g.reduce(a.f.to(torch.float64), ReduceOperator.MAX),
+    "segmented_reduce host offsets": lambda g, a: g.segmented_reduce(a.k, a.offs),
+    "segmented_reduce card offsets min": lambda g, a: g.segmented_reduce(a.k, a.card_offs, ReduceOperator.MIN),
+    "Reduce": lambda g, a: g.Reduce(g.DataType.UINT, ReduceOperator.SUM)(a.k, a.n),
+}
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"  # the sync debug mode's words for each one
+
+
+def _syncs_and_warnings(call) -> tuple:
+    """(the host_syncs counters' gain, the synchronizing operations that
+    torch's sync debug mode warns of plus the explicit
+    torch.cuda.synchronize calls, which it does not, their messages) over
+    one call, after a warm call."""
+    import warnings
+
+    from glu_tpu_torch.utils import timing
+
+    call()
+    torch.cuda.synchronize()
+    before = timing.summary()["counters"]
+    synchronize, explicit = torch.cuda.synchronize, []
+
+    def counted_synchronize(*args, **kwargs):
+        explicit.append("torch.cuda.synchronize")
+        return synchronize(*args, **kwargs)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize = counted_synchronize
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize = synchronize
+    after = timing.summary()["counters"]
+    counted = sum(v - before.get(k, 0) for k, v in after.items() if k.startswith("host_syncs."))
+    flagged = [str(w.message) for w in caught if SYNC_WARNING in str(w.message)] + explicit
+    return counted, len(flagged), flagged
+
+
+@pytest.mark.parametrize("n", [10_001, 1_000_003])
+@pytest.mark.parametrize("name", list(_SYNC_CALLS))
+def test_host_syncs_count_what_the_sync_debug_mode_flags(dev, shipped_table, name, n):
+    # every public function: its host_syncs counters gain what
+    # torch.cuda.set_sync_debug_mode flags in the same call
+    a = _sync_inputs(n, dev)
+    counted, flagged, what = _syncs_and_warnings(lambda: _SYNC_CALLS[name](glu_tpu_torch, a))
+    assert counted == flagged, (name, counted, what)
+
+
+@pytest.mark.parametrize("form, inputs, kw", [
+    ("distributed_radix_sort", "u32", {}),
+    ("distributed_radix_sort", "u32", {"bits": "auto"}),
+    ("distributed_radix_sort_f32", "f32", {}),
+    ("distributed_radix_sort_u64", "u64", {}),
+    ("distributed_radix_sort_u64_parts", "u64 parts", {"bits": "auto"}),
+    ("distributed_reduce", "u32", {}),
+    ("distributed_exclusive_scan", "u32", {}),
+    ("distributed_inclusive_scan", "u32", {}),
+])
+def test_host_syncs_of_the_distributed_functions_on_one_rank(dev, nccl_group, form, inputs, kw):
+    from glu_tpu_torch import parallel
+
+    args = _dist_sort_inputs(inputs, 100_003, dev)
+    if not form.startswith("distributed_radix_sort"):
+        args = args[:1]
+    counted, flagged, what = _syncs_and_warnings(lambda: getattr(parallel, form)(*args, **kw))
+    assert counted == flagged, (form, kw, counted, what)
+
+
+def test_trace_nests_the_programs_spans_in_the_callers_on_the_device_timeline(dev, tmp_path):
+    import json
+
+    from glu_tpu_torch.utils import timing
+
+    keys = _words("uniform", 50_000, dev).view(torch.uint32)
+    glu_tpu_torch.radix_sort(keys, keys)
+    torch.cuda.synchronize()
+    with timing.trace(str(tmp_path)):
+        with torch.profiler.record_function("caller"):
+            glu_tpu_torch.radix_sort(keys, keys)
+        torch.cuda.synchronize()
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = {e["name"]: e for e in events if e["name"].startswith("glu.")}
+    assert set(spans) == {"glu.radix_sort", "glu.route", "glu.engine.k3", "glu.launch"}
+
+    def inside(inner, outer):
+        return outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+    caller = next(e for e in events if e["name"] == "caller" and e["cat"] == "user_annotation")
+    assert inside(spans["glu.radix_sort"], caller)
+    for name in ("glu.route", "glu.engine.k3"):
+        assert inside(spans[name], spans["glu.radix_sort"]), name
+    assert inside(spans["glu.launch"], spans["glu.engine.k3"])
+    # the kernel launched inside glu.launch runs after it on the same timeline
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime" and inside(e, spans["glu.launch"])]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "sort_single_tile" in e["name"]]
+    assert runtime and len(kernels) == 1 and kernels[0]["ts"] >= spans["glu.launch"]["ts"]
+    gained = json.loads((tmp_path / "summary.json").read_text())
+    assert gained["spans"]["glu.launch"]["count"] == 1 and gained["counters"]["launches.sort_single_tile"] == 1

@@ -189,6 +189,40 @@ def test_sort_on_a_subgroup(pools):
         assert not overflow.any()
 
 
+def test_traced_sort_counts_one_host_sync_a_chunk_and_the_length_check(pools):
+    # two gloo ranks, pipeline_chunks "auto" = 2: the length check's fetch,
+    # then one fetch of the gathered counts a chunk; every stage's span
+    # under the one call id of the public call
+    rng = np.random.default_rng(11)
+    keys, values = _u32(rng, 2 * N_LOCAL), np.arange(2 * N_LOCAL, dtype=np.uint32)
+    per_rank = [("distributed_radix_sort", (k, v), {"num_samples": NUM_SAMPLES})
+                for k, v in zip(np.split(keys, 2), np.split(values, 2))]
+    got = results(pools[2].run("traced_call", per_rank))
+    order = np.argsort(keys, kind="stable")
+    _assert_bits_equal(np.concatenate([g[0][0] for g in got]), keys[order], "traced sort keys")
+    chunks = 2
+    # the rank each element leaves from and the rank it goes to, in the global order
+    src, dest = order // N_LOCAL, np.repeat(np.arange(2), got[0][0][2])
+    for rank, (_, summary, records) in enumerate(got):
+        counters = summary["counters"]
+        syncs = {k: v for k, v in counters.items() if k.startswith("host_syncs.")}
+        assert syncs == {"host_syncs.dist_check": 1, "host_syncs.dist_counts": chunks}, rank
+        assert sum(syncs.values()) == 1 + chunks
+        assert counters["dist.bytes_sent"] == 2 * 4 * int(np.sum((src == rank) & (dest != rank)))  # keys, values
+        spans = summary["spans"]
+        assert spans["glu.distributed_radix_sort"]["count"] == 1
+        for stage in ("check", "splitters", "bucket", "place", "local_sort", "total"):
+            assert spans[f"glu.dist.{stage}"]["count"] == 1, stage
+        for stage in ("partition", "counts", "exchange"):
+            assert spans[f"glu.dist.{stage}"]["count"] == chunks, stage
+        assert records[0] == ("glu.distributed_radix_sort", -1, records[0][2])
+        assert all(call == records[0][2] for _, _, call in records)
+        assert [name for name, parent, _ in records if parent == 0] == [
+            "glu.dist.check", "glu.dist.splitters", "glu.dist.bucket"] + [
+            "glu.dist.partition", "glu.dist.counts", "glu.dist.exchange"] * chunks + [
+            "glu.dist.place", "glu.dist.local_sort", "glu.dist.total"]
+
+
 @pytest.mark.parametrize("call, match", [
     (("distributed_radix_sort", "unequal"), "equal lengths"),
     (("distributed_radix_sort", "int32 keys"), "keys must be"),

@@ -74,6 +74,21 @@ def parallel_call(fn_name: str, args, kwargs):
 
 
 @_task
+def traced_call(fn_name: str, args, kwargs):
+    """parallel_call with the port's tracing on, from an empty store:
+    (result, summary(), [(name, parent, call id) of each span record])."""
+    from glu_tpu_torch.utils import timing
+
+    timing.reset()
+    timing.enable()
+    try:
+        result = parallel_call(fn_name, args, kwargs)
+    finally:
+        timing.disable()
+    return result, timing.summary(), [(r.name, r.parent, r.call) for r in timing.records()]
+
+
+@_task
 def primitives(x, op_name: str, backends):
     """The three distributed primitives of this rank's shard x under each
     backend: {backend: (reduce, exclusive, inclusive)}."""
