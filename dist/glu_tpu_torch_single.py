@@ -271,6 +271,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_onesweep_sort.argtypes = [ptr, ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, CTAs, stream)
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, c_int, ptr]
+    # (keys in, values in, keys out, values out, n, bit positions, bits per pass, passes, CTAs, stream)
+    lib.glu_sort_pairs_single_tile.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, c_int, ptr]
     # (CTAs) -> clusters of K3 the device holds at once
     lib.glu_sort_single_tile_clusters.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
@@ -282,8 +284,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
     lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass", "glu_bucket_of",
-                 "glu_bucket_of64"):
+                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters", "glu_reduce",
+                 "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib
 ''',
@@ -582,7 +584,7 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args, stream: 
     try:
         if stream is None:
             stream = current_stream(device)
-        if device.index == torch.cuda.current_device():
+        if device.index == torch._C._cuda_getDevice():  # torch.cuda.current_device() less its lazy-init check
             err = getattr(lib, fn_name)(*args, stream)
         else:
             with torch.cuda.device(device):
@@ -914,7 +916,9 @@ with torch.empty, launches on the current stream and counts its launches,
 inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
 plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. The plain version of a onesweep pass is built from the
+kernel or raises. `sort_pairs_single_tile` is K3's wrapper for one (keys,
+values) pair that radix_sort has checked already: it only allocates and
+launches. The plain version of a onesweep pass is built from the
 stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
 `scatter_runs_ref`), which the tests hold against the Pallas kernels.
 """
@@ -1250,12 +1254,43 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
         if not on_cuda(keys):
             return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
         outs = [torch.empty_like(s) for s in streams]
-        _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan,
-                ctas)
+        _launch_single_tile(keys.device, streams, outs, n, plan, ctas)
         sort_single_tile_launches += 1
         return outs[0], outs[1:]
     finally:
         stop(opened)
+
+
+def sort_pairs_single_tile(keys: torch.Tensor, values: torch.Tensor, positions: tuple):
+    """K3 on one (keys, values) pair, without sort_single_tile's checks: for
+    a caller that has checked both as contiguous 1-D CUDA tensors of 4-byte
+    words, one device and 2 to SINGLE_TILE_MAX of them (radix_sort's direct
+    path), with `positions` a tuple that _single_tile_plan takes. The
+    outputs are empty_like the inputs, so they keep their dtype; the launch
+    reads and writes the same words. Returns (keys, values)."""
+    global sort_single_tile_launches
+    opened = start("glu.engine.k3")
+    try:
+        n = keys.shape[0]
+        out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
+        _launch_single_tile(keys.device, (keys, values), (out_k, out_v), n, _single_tile_plan(positions)[1],
+                            single_tile_ctas(n))
+        sort_single_tile_launches += 1
+        return out_k, out_v
+    finally:
+        stop(opened)
+
+
+def _launch_single_tile(device: torch.device, streams, outs, n: int, plan: tuple, ctas: int) -> None:
+    """K3's launch: a (key, value) pair through glu_sort_pairs_single_tile,
+    which takes the four pointers as integers, any other count of streams
+    through glu_sort_single_tile's arrays of pointers."""
+    if len(streams) == 2:
+        launch(_sort_lib(), "glu_sort_pairs_single_tile", device, streams[0].data_ptr(), streams[1].data_ptr(),
+               outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
+    else:
+        launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
+               *plan, ctas)
 
 
 # ---------------------------------------------------------------------------
@@ -1475,6 +1510,7 @@ from ..utils import timing
 from ..utils.buffers import DeviceBuffer, default_device
 from ..utils.errors import check_argument
 from ..utils.timing import start_call, stop
+from . import _cuda_sort as cs
 from .backend import resolve_backend
 
 RADIX_BITS = 4  # digit width (reference RadixSort.hpp:303: u_radix_shift = step << 2)
@@ -1484,6 +1520,9 @@ FULL = tuple(range(32))
 
 _SIGN = -(1 << 31)  # int32 sign bit: flipping it turns int32 order into u32 order
 _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope's 4 digit groups
+_STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
+
+timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
 
 
 # ---------------------------------------------------------------------------
@@ -1531,8 +1570,6 @@ def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend:
         return keys, payloads
     if backend == "torch":
         return _sort_torch(keys, payloads, positions)
-    from . import _cuda_sort as cs
-
     if len(payloads) < cs.MAX_STREAMS:
         return cs.radix_sort_streams(keys, payloads, NUM_PASSES, positions)
     iota = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
@@ -1593,9 +1630,7 @@ def _key_envelope(words: torch.Tensor, backend: str) -> torch.Tensor:
             d = top
         first = words[:1]
         return torch.cat([first | d, first & ~d]).to(torch.int64) & 0xFFFFFFFF
-    from ._cuda_sort import digit_histograms
-
-    occurs = (digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
+    occurs = (cs.digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
     value = torch.arange(256, device=dev)
     has = ((value >> torch.arange(8, device=dev)[:, None]) & 1).bool()  # (bit, value)
     some_has, some_lacks = (occurs & has).any(2), (occurs & ~has).any(2)  # (byte, bit): key bit 8 * byte + bit
@@ -1664,23 +1699,41 @@ def _norm_bits(bits, words: torch.Tensor, num_steps, backend):
     return positions
 
 
-def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None):
+def _router():
+    """ops/router.py, imported at the first call that routes and kept: an
+    import with this module would make `python -m glu_tpu_torch.ops.router`
+    load the router twice, and one inside each call costs as much as a
+    check."""
+    global _ROUTER
+    if _ROUTER is None:
+        from . import router
+
+        _ROUTER = router
+    return _ROUTER
+
+
+_ROUTER = None
+
+
+def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None, route=None):
     """Sort int32-carried u32 keys (already in their sortable form) with
     payloads: high to low through the complement, which keeps ties in input
     order and the set of varying bits; `bits` refers to the complemented
     key. The bit positions come first, then the route (ops/router.py), on
     (n, payloads, passes, whether the bits are the whole key): bits="auto"
-    has synchronised the host by then. Returns (keys, list of payloads)."""
-    from .router import _npasses_of, _sort_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
-
+    has synchronised the host by then; `route`, where the caller has taken
+    it already. Returns (keys, list of payloads)."""
     steps = _norm_steps(num_steps)
     if descending:
         words = ~words
     positions = _norm_bits(bits, words, num_steps, backend)
     if positions is None:
-        positions = tuple(range(steps * RADIX_BITS))
-    b = _sort_backend(backend, words, words.numel(), len(payloads), _npasses_of(positions), positions == FULL)
-    out_k, outs = _radix_sort_streams(words, payloads, positions, b)
+        positions = _STEP_BITS[steps]
+    if route is None:
+        router = _router()
+        route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
+                                     positions == FULL)
+    out_k, outs = _radix_sort_streams(words, payloads, positions, route)
     return (~out_k if descending else out_k), outs
 
 
@@ -1701,6 +1754,14 @@ def _check_inputs(keys: torch.Tensor, key_dtype: torch.dtype, **payloads) -> Non
 
 def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).contiguous()
+
+
+def _k3_direct(on_cuda: bool, contiguous: bool, n: int, bits, descending: bool) -> bool:
+    """Whether a radix_sort call may go straight to K3, by what the call
+    shows: both tensors on the card and contiguous, 2 to SINGLE_TILE_MAX
+    pairs, no `bits` and ascending. The route decides after this: only a
+    call routed to "cuda" takes the direct path."""
+    return on_cuda and contiguous and 2 <= n <= cs.SINGLE_TILE_MAX and bits is None and not descending
 
 
 def _u32(w: torch.Tensor) -> torch.Tensor:
@@ -1750,10 +1811,22 @@ def radix_sort(
             not (descending and num_steps not in (0, None, NUM_PASSES)),
             "descending requires the full sort (num_steps=0)",
         )
-        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
+        n = keys.shape[0]
+        if n <= 1:  # already sorted x) (reference :278-279)
             return keys, values
+        route = None
+        if _k3_direct(keys.is_cuda and values.is_cuda, keys.is_contiguous() and values.is_contiguous(), n, bits,
+                     descending):
+            # the direct path: num_steps fixes the key bits, and K3 sorts the u32 words as they are
+            positions = _STEP_BITS[_norm_steps(num_steps)]
+            router = _router()
+            route = router._sort_backend(backend, keys, n, 1, router._npasses_of(positions), positions == FULL)
+            if route == "cuda":
+                timing.count("sort.k3_direct")
+                return cs.sort_pairs_single_tile(keys, values, positions)
         out_k, (out_v,) = _sort_words(
-            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
+            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits,
+            route=route,
         )
         return _u32(out_k), _u32(out_v)
     finally:
@@ -1888,11 +1961,11 @@ def _sort_u64_words(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, bi
     """The u64 sort of int32-carried words: the positions of each word,
     then the route (ops/router.py::_u64_backend), then the two-word sort.
     Returns (hi, lo, values)."""
-    from .router import _npasses_of, _u64_backend
-
+    router = _router()
     pos_hi, pos_lo = _u64_positions(bits, hi, lo, backend)
     extra_ops = sum(1 for pos in (pos_hi, pos_lo) if pos and pos != FULL)
-    b = _u64_backend(backend, hi, hi.numel(), _npasses_of(pos_hi), _npasses_of(pos_lo), extra_ops)
+    npasses = router._npasses_of
+    b = router._u64_backend(backend, hi, hi.numel(), npasses(pos_hi), npasses(pos_lo), extra_ops)
     out_hi, out_lo, (out_v,) = _sort_two_words(hi, lo, pos_hi, pos_lo, [_words(values)], b)
     return out_hi, out_lo, out_v
 
@@ -2046,13 +2119,13 @@ def _radix_sort_segmented_offsets(keys, values, offsets, backend, bits):
 def _segmented_sort(keys, values, seg, num_segments: int, backend, bits):
     """The two-word sort by (segment id, key), routed by
     ops/router.py::_segmented_backend once the key's positions are known."""
-    from .router import _npasses_of, _segmented_backend
-
     k = _words(keys)
     positions = _norm_bits(bits, k, 0, backend)
     positions = FULL if positions is None else positions
     seg_pos = _seg_bits(num_segments)
-    b = _segmented_backend(backend, k, k.numel(), _npasses_of(positions), _npasses_of(seg_pos), positions == FULL)
+    router = _router()
+    npasses = router._npasses_of
+    b = router._segmented_backend(backend, k, k.numel(), npasses(positions), npasses(seg_pos), positions == FULL)
     _, out_k, (out_v,) = _sort_two_words(seg, k, seg_pos, positions, [_words(values)], b)
     return _u32(out_k), _u32(out_v)
 
@@ -2078,10 +2151,9 @@ class RadixSort:
         raises when there is none)."""
         call = start_call("glu.RadixSort.prepare_internal_buffers")
         try:
-            from .router import _npasses_of, _sort_backend
-
+            router = _router()
             k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
-            b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
+            b = router._sort_backend(backend, k, count, 1, router._npasses_of(FULL), True)  # a full pair sort's route
             key = (count, b, k.device)
             if count <= 1 or key in self._warm:
                 return
@@ -4745,7 +4817,8 @@ The port's own tracing is one store a process, kept here:
     (time.perf_counter_ns), its parent span and a call id: a public
     function opens a call id (`start_call`), and every span under it
     shares that id; nesting is tracked per thread.
-  - `count(name, n=1)`: a counter, always on (an integer add).
+  - `count(name, n=1)`: a counter, always on (an integer add);
+    `declare(name)` lists a counter in summary() before it first counts.
   - `enable()` / `disable()`: spans on for an operator's own runs.
   - `summary()`: for each span name its count, total and self microseconds
     (duration less what its child spans cover), every counter, and each
@@ -4861,6 +4934,7 @@ _local = threading.local()  # .stack: the open spans of this thread, innermost l
 _records: list = []  # [name, start, end, parent record or -1, call id], in the order they opened
 _stats: dict = {}  # name -> [count, total ns, self ns]
 _counters: dict = {}
+_declared: set = set()  # counters that summary() lists from 0
 _dropped = 0  # spans closed past MAX_RECORDS
 _calls = 0  # call ids given out
 _anchor = (time.perf_counter_ns(), time.time_ns())  # one reading of both clocks, for records()
@@ -4985,6 +5059,13 @@ def count(name: str, n: int = 1) -> None:
     _counters[name] = _counters.get(name, 0) + n
 
 
+def declare(name: str) -> None:
+    """Makes summary() list the counter `name`, at 0 until it counts, so that
+    a reader can tell a path that never ran from a counter that is not
+    there."""
+    _declared.add(name)
+
+
 def enable() -> None:
     """Spans record from now on, with or without a profiler."""
     global _enabled, _on
@@ -5005,9 +5086,10 @@ def _launch_modules():
 
 def summary() -> dict:
     """{"spans": {name: {"count", "total_us", "self_us"}}, "counters": {name:
-    value}, "dropped": records not kept}: the counters include each loaded
-    kernel module's launch counts, as launches.<kernel>."""
-    counters = dict(_counters)
+    value}, "dropped": records not kept}: the counters include the declared
+    ones and each loaded kernel module's launch counts, as launches.<kernel>."""
+    counters = dict.fromkeys(_declared, 0)
+    counters.update(_counters)
     for module in _launch_modules():
         counters.update((f"launches.{kernel}", n) for kernel, n in module.launch_counts().items())
     spans = {name: {"count": c, "total_us": t / 1e3, "self_us": own / 1e3} for name, (c, t, own) in _stats.items()}
@@ -6467,6 +6549,16 @@ int glu_sort_single_tile(const void* const* in, void* const* out, int nstreams, 
   err = cudaLaunchKernelEx(&launch.config, sort_single_tile_kernel<true>, s, n, single_tile_slice(n, ctas), plan);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
+}
+
+// K3 on one (key, value) pair of streams: glu_sort_single_tile with the
+// four pointers given one by one, so that a caller passes plain integers
+// and builds no arrays of pointers.
+int glu_sort_pairs_single_tile(const void* keys_in, const void* values_in, void* keys_out, void* values_out, int n,
+                               const int* bits, const int* nbits, int npasses, int ctas, void* stream) {
+  const void* const in[2] = {keys_in, values_in};
+  void* const out[2] = {keys_out, values_out};
+  return glu_sort_single_tile(in, out, 2, n, bits, nbits, npasses, ctas, stream);
 }
 
 // How many clusters of ctas CTAs of K3 the device can hold at once

@@ -153,6 +153,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_onesweep_sort.argtypes = [ptr, ptr, ptr, c_int, c_int, ptr, ptr, c_int, ptr, ptr]
     # (in pointers, out pointers, stream count, n, bit positions, bits per pass, passes, CTAs, stream)
     lib.glu_sort_single_tile.argtypes = [ptr, ptr, c_int, c_int, ptr, ptr, c_int, c_int, ptr]
+    # (keys in, values in, keys out, values out, n, bit positions, bits per pass, passes, CTAs, stream)
+    lib.glu_sort_pairs_single_tile.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, c_int, ptr]
     # (CTAs) -> clusters of K3 the device holds at once
     lib.glu_sort_single_tile_clusters.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
@@ -164,7 +166,7 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
     lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_single_tile_clusters", "glu_reduce", "glu_scan_pass", "glu_bucket_of",
-                 "glu_bucket_of64"):
+                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters", "glu_reduce",
+                 "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib

@@ -882,6 +882,16 @@ int glu_sort_single_tile(const void* const* in, void* const* out, int nstreams, 
   return err != cudaSuccess ? err : last;
 }
 
+// K3 on one (key, value) pair of streams: glu_sort_single_tile with the
+// four pointers given one by one, so that a caller passes plain integers
+// and builds no arrays of pointers.
+int glu_sort_pairs_single_tile(const void* keys_in, const void* values_in, void* keys_out, void* values_out, int n,
+                               const int* bits, const int* nbits, int npasses, int ctas, void* stream) {
+  const void* const in[2] = {keys_in, values_in};
+  void* const out[2] = {keys_out, values_out};
+  return glu_sort_single_tile(in, out, 2, n, bits, nbits, npasses, ctas, stream);
+}
+
 // How many clusters of ctas CTAs of K3 the device can hold at once
 // (cudaOccupancyMaxActiveClusters; 0: such a launch is refused), or minus
 // the CUDA error that stopped the query.

@@ -64,7 +64,7 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args, stream: 
     try:
         if stream is None:
             stream = current_stream(device)
-        if device.index == torch.cuda.current_device():
+        if device.index == torch._C._cuda_getDevice():  # torch.cuda.current_device() less its lazy-init check
             err = getattr(lib, fn_name)(*args, stream)
         else:
             with torch.cuda.device(device):

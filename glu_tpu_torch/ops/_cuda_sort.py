@@ -34,7 +34,9 @@ with torch.empty, launches on the current stream and counts its launches,
 inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
 plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. The plain version of a onesweep pass is built from the
+kernel or raises. `sort_pairs_single_tile` is K3's wrapper for one (keys,
+values) pair that radix_sort has checked already: it only allocates and
+launches. The plain version of a onesweep pass is built from the
 stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
 `scatter_runs_ref`), which the tests hold against the Pallas kernels.
 """
@@ -370,12 +372,43 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
         if not on_cuda(keys):
             return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
         outs = [torch.empty_like(s) for s in streams]
-        _launch("glu_sort_single_tile", keys.device, _pointers(streams), _pointers(outs), len(streams), n, *plan,
-                ctas)
+        _launch_single_tile(keys.device, streams, outs, n, plan, ctas)
         sort_single_tile_launches += 1
         return outs[0], outs[1:]
     finally:
         stop(opened)
+
+
+def sort_pairs_single_tile(keys: torch.Tensor, values: torch.Tensor, positions: tuple):
+    """K3 on one (keys, values) pair, without sort_single_tile's checks: for
+    a caller that has checked both as contiguous 1-D CUDA tensors of 4-byte
+    words, one device and 2 to SINGLE_TILE_MAX of them (radix_sort's direct
+    path), with `positions` a tuple that _single_tile_plan takes. The
+    outputs are empty_like the inputs, so they keep their dtype; the launch
+    reads and writes the same words. Returns (keys, values)."""
+    global sort_single_tile_launches
+    opened = start("glu.engine.k3")
+    try:
+        n = keys.shape[0]
+        out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
+        _launch_single_tile(keys.device, (keys, values), (out_k, out_v), n, _single_tile_plan(positions)[1],
+                            single_tile_ctas(n))
+        sort_single_tile_launches += 1
+        return out_k, out_v
+    finally:
+        stop(opened)
+
+
+def _launch_single_tile(device: torch.device, streams, outs, n: int, plan: tuple, ctas: int) -> None:
+    """K3's launch: a (key, value) pair through glu_sort_pairs_single_tile,
+    which takes the four pointers as integers, any other count of streams
+    through glu_sort_single_tile's arrays of pointers."""
+    if len(streams) == 2:
+        launch(_sort_lib(), "glu_sort_pairs_single_tile", device, streams[0].data_ptr(), streams[1].data_ptr(),
+               outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
+    else:
+        launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
+               *plan, ctas)
 
 
 # ---------------------------------------------------------------------------

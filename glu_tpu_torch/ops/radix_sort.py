@@ -37,6 +37,7 @@ from ..utils import timing
 from ..utils.buffers import DeviceBuffer, default_device
 from ..utils.errors import check_argument
 from ..utils.timing import start_call, stop
+from . import _cuda_sort as cs
 from .backend import resolve_backend
 
 RADIX_BITS = 4  # digit width (reference RadixSort.hpp:303: u_radix_shift = step << 2)
@@ -46,6 +47,9 @@ FULL = tuple(range(32))
 
 _SIGN = -(1 << 31)  # int32 sign bit: flipping it turns int32 order into u32 order
 _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope's 4 digit groups
+_STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
+
+timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +97,6 @@ def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend:
         return keys, payloads
     if backend == "torch":
         return _sort_torch(keys, payloads, positions)
-    from . import _cuda_sort as cs
-
     if len(payloads) < cs.MAX_STREAMS:
         return cs.radix_sort_streams(keys, payloads, NUM_PASSES, positions)
     iota = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
@@ -155,9 +157,7 @@ def _key_envelope(words: torch.Tensor, backend: str) -> torch.Tensor:
             d = top
         first = words[:1]
         return torch.cat([first | d, first & ~d]).to(torch.int64) & 0xFFFFFFFF
-    from ._cuda_sort import digit_histograms
-
-    occurs = (digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
+    occurs = (cs.digit_histograms(words, _BYTES) > 0)[:, None, :]  # (byte, 1, value)
     value = torch.arange(256, device=dev)
     has = ((value >> torch.arange(8, device=dev)[:, None]) & 1).bool()  # (bit, value)
     some_has, some_lacks = (occurs & has).any(2), (occurs & ~has).any(2)  # (byte, bit): key bit 8 * byte + bit
@@ -226,23 +226,41 @@ def _norm_bits(bits, words: torch.Tensor, num_steps, backend):
     return positions
 
 
-def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None):
+def _router():
+    """ops/router.py, imported at the first call that routes and kept: an
+    import with this module would make `python -m glu_tpu_torch.ops.router`
+    load the router twice, and one inside each call costs as much as a
+    check."""
+    global _ROUTER
+    if _ROUTER is None:
+        from . import router
+
+        _ROUTER = router
+    return _ROUTER
+
+
+_ROUTER = None
+
+
+def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None, route=None):
     """Sort int32-carried u32 keys (already in their sortable form) with
     payloads: high to low through the complement, which keeps ties in input
     order and the set of varying bits; `bits` refers to the complemented
     key. The bit positions come first, then the route (ops/router.py), on
     (n, payloads, passes, whether the bits are the whole key): bits="auto"
-    has synchronised the host by then. Returns (keys, list of payloads)."""
-    from .router import _npasses_of, _sort_backend  # here, so `python -m glu_tpu_torch.ops.router` loads it once
-
+    has synchronised the host by then; `route`, where the caller has taken
+    it already. Returns (keys, list of payloads)."""
     steps = _norm_steps(num_steps)
     if descending:
         words = ~words
     positions = _norm_bits(bits, words, num_steps, backend)
     if positions is None:
-        positions = tuple(range(steps * RADIX_BITS))
-    b = _sort_backend(backend, words, words.numel(), len(payloads), _npasses_of(positions), positions == FULL)
-    out_k, outs = _radix_sort_streams(words, payloads, positions, b)
+        positions = _STEP_BITS[steps]
+    if route is None:
+        router = _router()
+        route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
+                                     positions == FULL)
+    out_k, outs = _radix_sort_streams(words, payloads, positions, route)
     return (~out_k if descending else out_k), outs
 
 
@@ -263,6 +281,14 @@ def _check_inputs(keys: torch.Tensor, key_dtype: torch.dtype, **payloads) -> Non
 
 def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).contiguous()
+
+
+def _k3_direct(on_cuda: bool, contiguous: bool, n: int, bits, descending: bool) -> bool:
+    """Whether a radix_sort call may go straight to K3, by what the call
+    shows: both tensors on the card and contiguous, 2 to SINGLE_TILE_MAX
+    pairs, no `bits` and ascending. The route decides after this: only a
+    call routed to "cuda" takes the direct path."""
+    return on_cuda and contiguous and 2 <= n <= cs.SINGLE_TILE_MAX and bits is None and not descending
 
 
 def _u32(w: torch.Tensor) -> torch.Tensor:
@@ -312,10 +338,22 @@ def radix_sort(
             not (descending and num_steps not in (0, None, NUM_PASSES)),
             "descending requires the full sort (num_steps=0)",
         )
-        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
+        n = keys.shape[0]
+        if n <= 1:  # already sorted x) (reference :278-279)
             return keys, values
+        route = None
+        if _k3_direct(keys.is_cuda and values.is_cuda, keys.is_contiguous() and values.is_contiguous(), n, bits,
+                     descending):
+            # the direct path: num_steps fixes the key bits, and K3 sorts the u32 words as they are
+            positions = _STEP_BITS[_norm_steps(num_steps)]
+            router = _router()
+            route = router._sort_backend(backend, keys, n, 1, router._npasses_of(positions), positions == FULL)
+            if route == "cuda":
+                timing.count("sort.k3_direct")
+                return cs.sort_pairs_single_tile(keys, values, positions)
         out_k, (out_v,) = _sort_words(
-            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits
+            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits,
+            route=route,
         )
         return _u32(out_k), _u32(out_v)
     finally:
@@ -450,11 +488,11 @@ def _sort_u64_words(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor, bi
     """The u64 sort of int32-carried words: the positions of each word,
     then the route (ops/router.py::_u64_backend), then the two-word sort.
     Returns (hi, lo, values)."""
-    from .router import _npasses_of, _u64_backend
-
+    router = _router()
     pos_hi, pos_lo = _u64_positions(bits, hi, lo, backend)
     extra_ops = sum(1 for pos in (pos_hi, pos_lo) if pos and pos != FULL)
-    b = _u64_backend(backend, hi, hi.numel(), _npasses_of(pos_hi), _npasses_of(pos_lo), extra_ops)
+    npasses = router._npasses_of
+    b = router._u64_backend(backend, hi, hi.numel(), npasses(pos_hi), npasses(pos_lo), extra_ops)
     out_hi, out_lo, (out_v,) = _sort_two_words(hi, lo, pos_hi, pos_lo, [_words(values)], b)
     return out_hi, out_lo, out_v
 
@@ -608,13 +646,13 @@ def _radix_sort_segmented_offsets(keys, values, offsets, backend, bits):
 def _segmented_sort(keys, values, seg, num_segments: int, backend, bits):
     """The two-word sort by (segment id, key), routed by
     ops/router.py::_segmented_backend once the key's positions are known."""
-    from .router import _npasses_of, _segmented_backend
-
     k = _words(keys)
     positions = _norm_bits(bits, k, 0, backend)
     positions = FULL if positions is None else positions
     seg_pos = _seg_bits(num_segments)
-    b = _segmented_backend(backend, k, k.numel(), _npasses_of(positions), _npasses_of(seg_pos), positions == FULL)
+    router = _router()
+    npasses = router._npasses_of
+    b = router._segmented_backend(backend, k, k.numel(), npasses(positions), npasses(seg_pos), positions == FULL)
     _, out_k, (out_v,) = _sort_two_words(seg, k, seg_pos, positions, [_words(values)], b)
     return _u32(out_k), _u32(out_v)
 
@@ -640,10 +678,9 @@ class RadixSort:
         raises when there is none)."""
         call = start_call("glu.RadixSort.prepare_internal_buffers")
         try:
-            from .router import _npasses_of, _sort_backend
-
+            router = _router()
             k = torch.zeros(count, dtype=torch.int32, device=default_device(device)).view(torch.uint32)
-            b = _sort_backend(backend, k, count, 1, _npasses_of(FULL), True)  # the route of a full pair sort
+            b = router._sort_backend(backend, k, count, 1, router._npasses_of(FULL), True)  # a full pair sort's route
             key = (count, b, k.device)
             if count <= 1 or key in self._warm:
                 return

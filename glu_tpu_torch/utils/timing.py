@@ -12,7 +12,8 @@ The port's own tracing is one store a process, kept here:
     (time.perf_counter_ns), its parent span and a call id: a public
     function opens a call id (`start_call`), and every span under it
     shares that id; nesting is tracked per thread.
-  - `count(name, n=1)`: a counter, always on (an integer add).
+  - `count(name, n=1)`: a counter, always on (an integer add);
+    `declare(name)` lists a counter in summary() before it first counts.
   - `enable()` / `disable()`: spans on for an operator's own runs.
   - `summary()`: for each span name its count, total and self microseconds
     (duration less what its child spans cover), every counter, and each
@@ -128,6 +129,7 @@ _local = threading.local()  # .stack: the open spans of this thread, innermost l
 _records: list = []  # [name, start, end, parent record or -1, call id], in the order they opened
 _stats: dict = {}  # name -> [count, total ns, self ns]
 _counters: dict = {}
+_declared: set = set()  # counters that summary() lists from 0
 _dropped = 0  # spans closed past MAX_RECORDS
 _calls = 0  # call ids given out
 _anchor = (time.perf_counter_ns(), time.time_ns())  # one reading of both clocks, for records()
@@ -252,6 +254,13 @@ def count(name: str, n: int = 1) -> None:
     _counters[name] = _counters.get(name, 0) + n
 
 
+def declare(name: str) -> None:
+    """Makes summary() list the counter `name`, at 0 until it counts, so that
+    a reader can tell a path that never ran from a counter that is not
+    there."""
+    _declared.add(name)
+
+
 def enable() -> None:
     """Spans record from now on, with or without a profiler."""
     global _enabled, _on
@@ -272,9 +281,10 @@ def _launch_modules():
 
 def summary() -> dict:
     """{"spans": {name: {"count", "total_us", "self_us"}}, "counters": {name:
-    value}, "dropped": records not kept}: the counters include each loaded
-    kernel module's launch counts, as launches.<kernel>."""
-    counters = dict(_counters)
+    value}, "dropped": records not kept}: the counters include the declared
+    ones and each loaded kernel module's launch counts, as launches.<kernel>."""
+    counters = dict.fromkeys(_declared, 0)
+    counters.update(_counters)
     for module in _launch_modules():
         counters.update((f"launches.{kernel}", n) for kernel, n in module.launch_counts().items())
     spans = {name: {"count": c, "total_us": t / 1e3, "self_us": own / 1e3} for name, (c, t, own) in _stats.items()}

@@ -232,6 +232,63 @@ def test_routed_radix_sort_launches(dev, shipped_table, n, route):
     assert launched == (engine if chosen == "cuda" else (0, 0, 0))
 
 
+def _direct_and_launches() -> tuple:
+    from glu_tpu_torch.utils import timing
+
+    counters = timing.summary()["counters"]
+    return counters["sort.k3_direct"], counters["launches.sort_single_tile"]
+
+
+def _assert_same_as_torch(out, keys, vals, **kw) -> None:
+    want = glu_tpu_torch.radix_sort(keys, vals, backend="torch", **kw)
+    assert out[0].dtype == out[1].dtype == torch.uint32
+    _assert_same([o.view(torch.int32) for o in out], [w.view(torch.int32) for w in want])
+
+
+@pytest.mark.parametrize("num_steps", [0, 3])
+@pytest.mark.parametrize("n", [2, 3, 1024, 6144, 6145, 53_000, cs.SINGLE_TILE_MAX])
+def test_direct_path_matches_torch_backend(dev, shipped_table, n, num_steps):
+    # a routed pair sort in K3's range takes the direct path: one K3 launch,
+    # counted once, the same keys and values as backend="torch"
+    keys = _words("uniform", n, dev).view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    before = _direct_and_launches()
+    out = glu_tpu_torch.radix_sort(keys, vals, num_steps)
+    after = _direct_and_launches()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    _assert_same_as_torch(out, keys, vals, num_steps=num_steps)
+
+
+@pytest.mark.parametrize("case", ["non-contiguous", "descending", "bits", "past-k3", "torch", "env-torch"])
+def test_calls_off_the_direct_path_do_not_count_and_match(dev, shipped_table, monkeypatch, case):
+    n = cs.SINGLE_TILE_MAX + 1 if case == "past-k3" else 10_001
+    keys = _words("uniform", 2 * n, dev).view(torch.uint32)
+    vals = torch.arange(2 * n, dtype=torch.int32, device=dev).view(torch.uint32)
+    keys, vals = (keys[::2], vals[::2]) if case == "non-contiguous" else (keys[:n], vals[:n])
+    kw = {"descending": {"descending": True}, "bits": {"bits": tuple(range(5, 29))}}.get(case, {})
+    if case == "env-torch":
+        monkeypatch.setenv("GLU_TPU_TORCH_BACKEND", "torch")
+    before = _direct_and_launches()[0]
+    out = glu_tpu_torch.radix_sort(keys, vals, backend="torch" if case == "torch" else None, **kw)
+    assert _direct_and_launches()[0] == before
+    _assert_same_as_torch(out, keys, vals, **kw)
+
+
+def test_direct_path_makes_no_host_sync(dev, shipped_table):
+    keys = _words("uniform", 53_000, dev).view(torch.uint32)
+    vals = torch.arange(53_000, dtype=torch.int32, device=dev).view(torch.uint32)
+    glu_tpu_torch.radix_sort(keys, vals)
+    torch.cuda.synchronize()
+    before = _direct_and_launches()[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = glu_tpu_torch.radix_sort(keys, vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _direct_and_launches()[0] == before + 1
+    _assert_same_as_torch(out, keys, vals)
+
+
 def test_buffers_and_timing_on_card(dev):
     from glu_tpu_torch.utils.timing import measure_elapsed_time
 
