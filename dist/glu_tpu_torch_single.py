@@ -1523,6 +1523,8 @@ _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope'
 _STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
 
 timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
+timing.declare("sort.two_word")  # two-word sorts (u64 keys, segments) chained on the engine
+timing.declare("sort.two_word_passes")  # the 8-bit passes of both words of those sorts
 
 
 # ---------------------------------------------------------------------------
@@ -1585,15 +1587,29 @@ def _sort_two_words(major, minor, major_pos: tuple, minor_pos: tuple, payloads, 
     "cuda" chains two engine sorts (LSD over the words): the minor word
     carrying (major, payloads), then the major word carrying (minor,
     payloads), whose stability keeps the minor order within equal major
-    words. "torch" sorts once on the int64 of the two compacted words."""
+    words. "torch" sorts once on the int64 of the two compacted words.
+
+    The engine's chain counts itself (`sort.two_word`, and its passes in
+    `sort.two_word_passes`) and opens a span around each of its two sorts
+    (`glu.two_word.minor`, `glu.two_word.major`)."""
     if backend == "torch":
         wide = ((_compact(major, major_pos) ^ _SIGN).to(torch.int64) << 32) | (
             _compact(minor, minor_pos).to(torch.int64) & 0xFFFFFFFF
         )
         order = torch.sort(wide, stable=True).indices
         return major[order], minor[order], [v[order] for v in payloads]
-    minor, (major, *payloads) = _radix_sort_streams(minor, [major, *payloads], minor_pos, backend)
-    major, (minor, *payloads) = _radix_sort_streams(major, [minor, *payloads], major_pos, backend)
+    timing.count("sort.two_word")
+    timing.count("sort.two_word_passes", len(cs._pass_groups(minor_pos)) + len(cs._pass_groups(major_pos)))
+    opened = timing.start("glu.two_word.minor")
+    try:
+        minor, (major, *payloads) = _radix_sort_streams(minor, [major, *payloads], minor_pos, backend)
+    finally:
+        stop(opened)
+    opened = timing.start("glu.two_word.major")
+    try:
+        major, (minor, *payloads) = _radix_sort_streams(major, [minor, *payloads], major_pos, backend)
+    finally:
+        stop(opened)
     return major, minor, payloads
 
 
@@ -2513,6 +2529,22 @@ def ref_radix_sort(keys: torch.Tensor, values: torch.Tensor, num_steps: int = 0)
     wide = k.to(torch.int64) & ((1 << (4 * steps)) - 1)
     order = torch.sort(wide, stable=True).indices
     return k[order].view(torch.uint32), v[order].view(torch.uint32)
+
+
+def ref_csr(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor, num_vertices: int):
+    """The compressed sparse rows of a weighted edge list (u32 src, dst and
+    weight words, vertex ids below num_vertices <= 2^31): (row starts, int32
+    of num_vertices; the columns, u32; the weights, u32). Each row holds its
+    edges ascending by dst, edges of equal
+    (src, dst) in input order, and the weights travel with their edges; row
+    v spans [starts[v], starts[v + 1]), the last row ending at the edge
+    count. The key (src, dst) is widened to int64, where u32 order is plain
+    integer order."""
+    s, d = src.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, dst.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    order = torch.sort((s << 32) | d, stable=True).indices
+    counts = torch.bincount(s, minlength=num_vertices)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return starts, dst.view(torch.int32)[order].view(torch.uint32), weights.view(torch.int32)[order].view(torch.uint32)
 ''',
     'glu_tpu_torch.ops.router': r'''"""The router: a per-device cost model that picks the backend of a sort or a
 reduce when the caller asked for none (counterpart of the router in

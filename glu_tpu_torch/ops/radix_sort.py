@@ -50,6 +50,8 @@ _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope'
 _STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
 
 timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
+timing.declare("sort.two_word")  # two-word sorts (u64 keys, segments) chained on the engine
+timing.declare("sort.two_word_passes")  # the 8-bit passes of both words of those sorts
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +114,29 @@ def _sort_two_words(major, minor, major_pos: tuple, minor_pos: tuple, payloads, 
     "cuda" chains two engine sorts (LSD over the words): the minor word
     carrying (major, payloads), then the major word carrying (minor,
     payloads), whose stability keeps the minor order within equal major
-    words. "torch" sorts once on the int64 of the two compacted words."""
+    words. "torch" sorts once on the int64 of the two compacted words.
+
+    The engine's chain counts itself (`sort.two_word`, and its passes in
+    `sort.two_word_passes`) and opens a span around each of its two sorts
+    (`glu.two_word.minor`, `glu.two_word.major`)."""
     if backend == "torch":
         wide = ((_compact(major, major_pos) ^ _SIGN).to(torch.int64) << 32) | (
             _compact(minor, minor_pos).to(torch.int64) & 0xFFFFFFFF
         )
         order = torch.sort(wide, stable=True).indices
         return major[order], minor[order], [v[order] for v in payloads]
-    minor, (major, *payloads) = _radix_sort_streams(minor, [major, *payloads], minor_pos, backend)
-    major, (minor, *payloads) = _radix_sort_streams(major, [minor, *payloads], major_pos, backend)
+    timing.count("sort.two_word")
+    timing.count("sort.two_word_passes", len(cs._pass_groups(minor_pos)) + len(cs._pass_groups(major_pos)))
+    opened = timing.start("glu.two_word.minor")
+    try:
+        minor, (major, *payloads) = _radix_sort_streams(minor, [major, *payloads], minor_pos, backend)
+    finally:
+        stop(opened)
+    opened = timing.start("glu.two_word.major")
+    try:
+        major, (minor, *payloads) = _radix_sort_streams(major, [minor, *payloads], major_pos, backend)
+    finally:
+        stop(opened)
     return major, minor, payloads
 
 

@@ -50,3 +50,19 @@ def ref_radix_sort(keys: torch.Tensor, values: torch.Tensor, num_steps: int = 0)
     wide = k.to(torch.int64) & ((1 << (4 * steps)) - 1)
     order = torch.sort(wide, stable=True).indices
     return k[order].view(torch.uint32), v[order].view(torch.uint32)
+
+
+def ref_csr(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor, num_vertices: int):
+    """The compressed sparse rows of a weighted edge list (u32 src, dst and
+    weight words, vertex ids below num_vertices <= 2^31): (row starts, int32
+    of num_vertices; the columns, u32; the weights, u32). Each row holds its
+    edges ascending by dst, edges of equal
+    (src, dst) in input order, and the weights travel with their edges; row
+    v spans [starts[v], starts[v + 1]), the last row ending at the edge
+    count. The key (src, dst) is widened to int64, where u32 order is plain
+    integer order."""
+    s, d = src.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, dst.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    order = torch.sort((s << 32) | d, stable=True).indices
+    counts = torch.bincount(s, minlength=num_vertices)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return starts, dst.view(torch.int32)[order].view(torch.uint32), weights.view(torch.int32)[order].view(torch.uint32)
