@@ -275,6 +275,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_sort_pairs_single_tile.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, c_int, ptr]
     # (CTAs) -> clusters of K3 the device holds at once
     lib.glu_sort_single_tile_clusters.argtypes = [c_int]
+    # (stream count) -> CTAs of a onesweep pass an SM holds at once
+    lib.glu_onesweep_ctas_per_sm.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
@@ -284,8 +286,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
     lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters", "glu_reduce",
-                 "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
+                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters",
+                 "glu_onesweep_ctas_per_sm", "glu_reduce", "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib
 ''',
@@ -909,7 +911,10 @@ written anew from what it computes (csrc/radix_sort.cu):
         its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
-in one call to the library.
+in one call to the library. On the card it counts its passes in the counter
+sort.onesweep_passes_3cta where an SM holds 3 CTAs of them at once (the
+library's answer for the launch's stream count, asked once per device and
+count); on the H100 the pass runs 2 CTAs an SM, so the counter stays at 0.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
@@ -930,8 +935,8 @@ import functools
 
 import torch
 
-from ..utils.errors import check_argument
-from ..utils.timing import start, stop
+from ..utils.errors import check_argument, fail
+from ..utils.timing import count, declare, start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
 FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
@@ -955,6 +960,8 @@ MAX_STREAMS = 8
 # CTAs, which on the H100 is the faster from here on and 1.5x slower at
 # 256-4,096 elements (tools/k3_ctas.py; PERF.md).
 CTA_MAX = 6144
+
+declare("sort.onesweep_passes_3cta")  # onesweep passes launched where an SM holds 3 of their CTAs
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -1331,6 +1338,24 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     return onesweep_sort(keys, payloads, positions)
 
 
+_ctas_per_sm: dict = {}  # (device index, stream count) -> CTAs of a onesweep pass an SM holds
+
+
+def onesweep_ctas_per_sm(device: torch.device, nstreams: int) -> int:
+    """How many CTAs of a onesweep pass over nstreams streams an SM of
+    `device` holds at once, asked of the library once per device and count."""
+    key = (device.index, nstreams)
+    ctas = _ctas_per_sm.get(key)
+    if ctas is None:
+        with torch.cuda.device(device):
+            ctas = _sort_lib().glu_onesweep_ctas_per_sm(nstreams)
+        if ctas < 0:
+            fail("glu_onesweep_ctas_per_sm failed: %s (cudaError %d)", _sort_lib().glu_error_string(-ctas).decode(),
+                 -ctas)
+        _ctas_per_sm[key] = ctas
+    return ctas
+
+
 @functools.lru_cache(maxsize=64)
 def _onesweep_plan(positions: tuple) -> tuple:
     """The checked passes of a multi-tile sort by `positions` and their C
@@ -1377,6 +1402,8 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
                *plan, base + 4 * tmp_words)
         digit_histograms_launches += 1
         onesweep_pass_launches += npasses
+        if onesweep_ctas_per_sm(keys.device, len(streams)) >= 3:
+            count("sort.onesweep_passes_3cta", npasses)
         return outs[0], outs[1:]
     finally:
         stop(opened)
@@ -5739,17 +5766,27 @@ constexpr int kMaxPassBits = 8;      // a onesweep pass takes 1-8 key bits
 constexpr int kMaxBins = 1 << kMaxPassBits;
 constexpr int kMaxPasses = 4;        // 32 key bits in passes of 8
 
-// 6144 elements per onesweep tile: 2 CTAs per SM with one payload stream,
-// 1 with seven (the shared memory holds every stream's tile). Larger tiles
-// write longer runs of one digit, so fewer and fuller sectors; the variants
-// that tools/onesweep_variants.py times are in PERF.md.
+// 6144 elements per onesweep tile, 2 CTAs an SM. The shared memory, which
+// holds every stream's tile, has room for 3 with up to one payload stream
+// (about 75,960 bytes a CTA, of the SM's 233,472), 2 with two, 1 with three
+// to seven (glu_onesweep_ctas_per_sm). 3 would need at most 56 registers a
+// thread (65,536 / (3 x 384), in steps of 8), which the kernel fits with no
+// spill when it ranks 4 rows and stores 4 ranks at a time; but on the H100 a
+// two-stream pass then runs 10-12% slower: with 1.5 times the tiles in
+// flight, the scattered stores and the look-back each cost 2.5-3 times as
+// much (PERF.md). A thread stores kStoreItems ranks at a time, so that
+// nothing spills. Larger tiles write longer runs of one digit, so fewer and
+// fuller sectors; the variants that tools/onesweep_variants.py times are in
+// PERF.md.
 constexpr int kTileThreads = 384;
 constexpr int kTileItems = 16;
 constexpr int kTileCtasPerSm = 2;                 // __launch_bounds__ occupancy target
+constexpr int kStoreItems = 8;                    // ranks a thread moves at once in step (d)
 constexpr int kTile = kTileThreads * kTileItems;
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kWarpItems = kTile / kTileWarps;    // each warp ranks a contiguous run of 512
 static_assert(kTileThreads >= kMaxBins, "one thread per digit in the look-back");
+static_assert(kTileItems % kStoreItems == 0, "a thread's ranks in whole chunks");
 
 constexpr int kHistThreads = 1024;
 
@@ -5982,7 +6019,9 @@ __device__ __forceinline__ void stage_tile_async(const uint32_t* in, uint32_t* b
 //  (d) writes, for every stream, the element of in-tile rank r with digit d
 //      to digit_base[d] + (equal digits in earlier tiles) + r - (first
 //      in-tile rank of d), gathering from shared memory in rank order, so
-//      that a warp's stores fall on few contiguous runs;
+//      that a warp's stores fall on few contiguous runs; a thread finds the
+//      source and place of kStoreItems ranks, then moves them in every
+//      stream;
 //  (f) masks the ragged last tile: only its tile_n elements are moved.
 // Bound by device-memory bytes: each word read once and written once, plus
 // the status words. What holds it back is the latency of one tile's chain of
@@ -6075,25 +6114,29 @@ __global__ void __launch_bounds__(kTileThreads, kTileCtasPerSm)
   cp_async_wait<0>();
   __syncthreads();
 
-  // (d) ranks t + kTileThreads k, k = 0..kTileItems-1
-  int from[kTileItems];
-  int dst[kTileItems];
+  // (d) ranks t + kTileThreads (c + k), kStoreItems of them at a time: each
+  // rank's source and place, found with its key, serve every stream
 #pragma unroll
-  for (int k = 0; k < kTileItems; ++k) {
-    const int r = kTileThreads * k + t;
-    if (r < tile_n) {
-      from[k] = source[r];
-      const uint32_t key = stage[from[k]];
-      dst[k] = shift[digit.of(key)] + r;
-      s_out[0][dst[k]] = key;
+  for (int c = 0; c < kTileItems; c += kStoreItems) {
+    int from[kStoreItems];
+    int dst[kStoreItems];
+#pragma unroll
+    for (int k = 0; k < kStoreItems; ++k) {
+      const int r = kTileThreads * (c + k) + t;
+      if (r < tile_n) {
+        from[k] = source[r];
+        const uint32_t key = stage[from[k]];
+        dst[k] = shift[digit.of(key)] + r;
+        s_out[0][dst[k]] = key;
+      }
     }
-  }
-  for (int st = 1; st < s.count; ++st) {
-    const uint32_t* buf = stage + st * kTile;
-    uint32_t* out = s_out[st];
+    for (int st = 1; st < s.count; ++st) {
+      const uint32_t* buf = stage + st * kTile;
+      uint32_t* out = s_out[st];
 #pragma unroll
-    for (int k = 0; k < kTileItems; ++k) {
-      if (kTileThreads * k + t < tile_n) out[dst[k]] = buf[from[k]];
+      for (int k = 0; k < kStoreItems; ++k) {
+        if (kTileThreads * (c + k) + t < tile_n) out[dst[k]] = buf[from[k]];
+      }
     }
   }
 }
@@ -6381,15 +6424,20 @@ bool fill_plan(PassDigits* plan, const int* bits, const int* nbits, int npasses)
   return true;
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory: once per device and
-// process (a bit of `done` per device), not on every launch.
-cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>* done) {
+// Lets `kernel` take `bytes` of dynamic shared memory, and with max_carveout
+// asks for the largest shared-memory carveout of L1, so that CUDA never
+// picks one that holds fewer CTAs than the shared memory allows: once per
+// device and process (a bit of `done` per device), not on every launch.
+cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>* done,
+                       bool max_carveout = false) {
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (done->load(std::memory_order_relaxed) & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
@@ -6424,11 +6472,11 @@ struct ClusterLaunch {
 // whole 16-byte vectors (the last CTA takes what is left); n itself on one.
 int single_tile_slice(int n, int ctas) { return ctas == 1 ? n : ((n + ctas - 1) / ctas + 3) / 4 * 4; }
 
-// The most any onesweep launch takes (kMaxStreams streams); a launch with
-// fewer streams asks for less.
+// The most any onesweep launch takes (kMaxStreams streams), from the largest
+// carveout; a launch with fewer streams asks for less.
 cudaError_t allow_onesweep_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem(reinterpret_cast<const void*>(onesweep_pass_kernel), onesweep_smem(kMaxStreams), &done);
+  return allow_smem(reinterpret_cast<const void*>(onesweep_pass_kernel), onesweep_smem(kMaxStreams), &done, true);
 }
 
 int num_tiles(int n) { return static_cast<int>((static_cast<long long>(n) + kTile - 1) / kTile); }
@@ -6504,6 +6552,20 @@ int glu_onesweep_pass(const void* const* in, void* const* out, int nstreams, int
   onesweep_pass_kernel<<<num_tiles(n), kTileThreads, onesweep_smem(nstreams), static_cast<cudaStream_t>(stream)>>>(
       s, n, digit, digit_base, static_cast<unsigned long long*>(status));
   return cudaGetLastError();
+}
+
+// How many CTAs of a onesweep pass over nstreams streams an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes that
+// every launch sets), or minus the CUDA error that stopped the query.
+int glu_onesweep_ctas_per_sm(int nstreams) {
+  if (nstreams < 1 || nstreams > kMaxStreams) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_onesweep_smem();
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, onesweep_pass_kernel, kTileThreads,
+                                                        onesweep_smem(nstreams));
+  cudaGetLastError();
+  return err != cudaSuccess ? -static_cast<int>(err) : ctas;
 }
 
 // The int32 words of the work buffer that glu_onesweep_sort takes for n

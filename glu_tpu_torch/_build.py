@@ -157,6 +157,8 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glu_sort_pairs_single_tile.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, c_int, ptr]
     # (CTAs) -> clusters of K3 the device holds at once
     lib.glu_sort_single_tile_clusters.argtypes = [c_int]
+    # (stream count) -> CTAs of a onesweep pass an SM holds at once
+    lib.glu_onesweep_ctas_per_sm.argtypes = [c_int]
     # (input, parts, len, components, ctas, dtype, op, tickets, partials, output, stream)
     lib.glu_reduce.argtypes = [ptr, c_int, ctypes.c_longlong, c_int, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     # (input, output, parts, len, dtype, op, zeroed status words, stream)
@@ -166,7 +168,7 @@ def bind_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (hi, lo, n, base, splitter hi, splitter lo, splitter indices, splitters, output, stream)
     lib.glu_bucket_of64.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, ptr, ptr, ptr, c_int, ptr, ptr]
     for name in ("glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_sort_work_words", "glu_onesweep_sort",
-                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters", "glu_reduce",
-                 "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
+                 "glu_sort_single_tile", "glu_sort_pairs_single_tile", "glu_sort_single_tile_clusters",
+                 "glu_onesweep_ctas_per_sm", "glu_reduce", "glu_scan_pass", "glu_bucket_of", "glu_bucket_of64"):
         getattr(lib, name).restype = c_int
     return lib

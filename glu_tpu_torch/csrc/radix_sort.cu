@@ -38,17 +38,27 @@ constexpr int kMaxPassBits = 8;      // a onesweep pass takes 1-8 key bits
 constexpr int kMaxBins = 1 << kMaxPassBits;
 constexpr int kMaxPasses = 4;        // 32 key bits in passes of 8
 
-// 6144 elements per onesweep tile: 2 CTAs per SM with one payload stream,
-// 1 with seven (the shared memory holds every stream's tile). Larger tiles
-// write longer runs of one digit, so fewer and fuller sectors; the variants
-// that tools/onesweep_variants.py times are in PERF.md.
+// 6144 elements per onesweep tile, 2 CTAs an SM. The shared memory, which
+// holds every stream's tile, has room for 3 with up to one payload stream
+// (about 75,960 bytes a CTA, of the SM's 233,472), 2 with two, 1 with three
+// to seven (glu_onesweep_ctas_per_sm). 3 would need at most 56 registers a
+// thread (65,536 / (3 x 384), in steps of 8), which the kernel fits with no
+// spill when it ranks 4 rows and stores 4 ranks at a time; but on the H100 a
+// two-stream pass then runs 10-12% slower: with 1.5 times the tiles in
+// flight, the scattered stores and the look-back each cost 2.5-3 times as
+// much (PERF.md). A thread stores kStoreItems ranks at a time, so that
+// nothing spills. Larger tiles write longer runs of one digit, so fewer and
+// fuller sectors; the variants that tools/onesweep_variants.py times are in
+// PERF.md.
 constexpr int kTileThreads = 384;
 constexpr int kTileItems = 16;
 constexpr int kTileCtasPerSm = 2;                 // __launch_bounds__ occupancy target
+constexpr int kStoreItems = 8;                    // ranks a thread moves at once in step (d)
 constexpr int kTile = kTileThreads * kTileItems;
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kWarpItems = kTile / kTileWarps;    // each warp ranks a contiguous run of 512
 static_assert(kTileThreads >= kMaxBins, "one thread per digit in the look-back");
+static_assert(kTileItems % kStoreItems == 0, "a thread's ranks in whole chunks");
 
 constexpr int kHistThreads = 1024;
 
@@ -281,7 +291,9 @@ __device__ __forceinline__ void stage_tile_async(const uint32_t* in, uint32_t* b
 //  (d) writes, for every stream, the element of in-tile rank r with digit d
 //      to digit_base[d] + (equal digits in earlier tiles) + r - (first
 //      in-tile rank of d), gathering from shared memory in rank order, so
-//      that a warp's stores fall on few contiguous runs;
+//      that a warp's stores fall on few contiguous runs; a thread finds the
+//      source and place of kStoreItems ranks, then moves them in every
+//      stream;
 //  (f) masks the ragged last tile: only its tile_n elements are moved.
 // Bound by device-memory bytes: each word read once and written once, plus
 // the status words. What holds it back is the latency of one tile's chain of
@@ -374,25 +386,29 @@ __global__ void __launch_bounds__(kTileThreads, kTileCtasPerSm)
   cp_async_wait<0>();
   __syncthreads();
 
-  // (d) ranks t + kTileThreads k, k = 0..kTileItems-1
-  int from[kTileItems];
-  int dst[kTileItems];
+  // (d) ranks t + kTileThreads (c + k), kStoreItems of them at a time: each
+  // rank's source and place, found with its key, serve every stream
 #pragma unroll
-  for (int k = 0; k < kTileItems; ++k) {
-    const int r = kTileThreads * k + t;
-    if (r < tile_n) {
-      from[k] = source[r];
-      const uint32_t key = stage[from[k]];
-      dst[k] = shift[digit.of(key)] + r;
-      s_out[0][dst[k]] = key;
+  for (int c = 0; c < kTileItems; c += kStoreItems) {
+    int from[kStoreItems];
+    int dst[kStoreItems];
+#pragma unroll
+    for (int k = 0; k < kStoreItems; ++k) {
+      const int r = kTileThreads * (c + k) + t;
+      if (r < tile_n) {
+        from[k] = source[r];
+        const uint32_t key = stage[from[k]];
+        dst[k] = shift[digit.of(key)] + r;
+        s_out[0][dst[k]] = key;
+      }
     }
-  }
-  for (int st = 1; st < s.count; ++st) {
-    const uint32_t* buf = stage + st * kTile;
-    uint32_t* out = s_out[st];
+    for (int st = 1; st < s.count; ++st) {
+      const uint32_t* buf = stage + st * kTile;
+      uint32_t* out = s_out[st];
 #pragma unroll
-    for (int k = 0; k < kTileItems; ++k) {
-      if (kTileThreads * k + t < tile_n) out[dst[k]] = buf[from[k]];
+      for (int k = 0; k < kStoreItems; ++k) {
+        if (kTileThreads * (c + k) + t < tile_n) out[dst[k]] = buf[from[k]];
+      }
     }
   }
 }
@@ -680,15 +696,20 @@ bool fill_plan(PassDigits* plan, const int* bits, const int* nbits, int npasses)
   return true;
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory: once per device and
-// process (a bit of `done` per device), not on every launch.
-cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>* done) {
+// Lets `kernel` take `bytes` of dynamic shared memory, and with max_carveout
+// asks for the largest shared-memory carveout of L1, so that CUDA never
+// picks one that holds fewer CTAs than the shared memory allows: once per
+// device and process (a bit of `done` per device), not on every launch.
+cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>* done,
+                       bool max_carveout = false) {
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (done->load(std::memory_order_relaxed) & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
@@ -723,11 +744,11 @@ struct ClusterLaunch {
 // whole 16-byte vectors (the last CTA takes what is left); n itself on one.
 int single_tile_slice(int n, int ctas) { return ctas == 1 ? n : ((n + ctas - 1) / ctas + 3) / 4 * 4; }
 
-// The most any onesweep launch takes (kMaxStreams streams); a launch with
-// fewer streams asks for less.
+// The most any onesweep launch takes (kMaxStreams streams), from the largest
+// carveout; a launch with fewer streams asks for less.
 cudaError_t allow_onesweep_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem(reinterpret_cast<const void*>(onesweep_pass_kernel), onesweep_smem(kMaxStreams), &done);
+  return allow_smem(reinterpret_cast<const void*>(onesweep_pass_kernel), onesweep_smem(kMaxStreams), &done, true);
 }
 
 int num_tiles(int n) { return static_cast<int>((static_cast<long long>(n) + kTile - 1) / kTile); }
@@ -803,6 +824,20 @@ int glu_onesweep_pass(const void* const* in, void* const* out, int nstreams, int
   onesweep_pass_kernel<<<num_tiles(n), kTileThreads, onesweep_smem(nstreams), static_cast<cudaStream_t>(stream)>>>(
       s, n, digit, digit_base, static_cast<unsigned long long*>(status));
   return cudaGetLastError();
+}
+
+// How many CTAs of a onesweep pass over nstreams streams an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes that
+// every launch sets), or minus the CUDA error that stopped the query.
+int glu_onesweep_ctas_per_sm(int nstreams) {
+  if (nstreams < 1 || nstreams > kMaxStreams) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_onesweep_smem();
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, onesweep_pass_kernel, kTileThreads,
+                                                        onesweep_smem(nstreams));
+  cudaGetLastError();
+  return err != cudaSuccess ? -static_cast<int>(err) : ctas;
 }
 
 // The int32 words of the work buffer that glu_onesweep_sort takes for n

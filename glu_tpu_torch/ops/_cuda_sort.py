@@ -27,7 +27,10 @@ written anew from what it computes (csrc/radix_sort.cu):
         its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
-in one call to the library.
+in one call to the library. On the card it counts its passes in the counter
+sort.onesweep_passes_3cta where an SM holds 3 CTAs of them at once (the
+library's answer for the launch's stream count, asked once per device and
+count); on the H100 the pass runs 2 CTAs an SM, so the counter stays at 0.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
@@ -48,8 +51,8 @@ import functools
 
 import torch
 
-from ..utils.errors import check_argument
-from ..utils.timing import start, stop
+from ..utils.errors import check_argument, fail
+from ..utils.timing import count, declare, start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
 FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
@@ -73,6 +76,8 @@ MAX_STREAMS = 8
 # CTAs, which on the H100 is the faster from here on and 1.5x slower at
 # 256-4,096 elements (tools/k3_ctas.py; PERF.md).
 CTA_MAX = 6144
+
+declare("sort.onesweep_passes_3cta")  # onesweep passes launched where an SM holds 3 of their CTAs
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -449,6 +454,24 @@ def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positio
     return onesweep_sort(keys, payloads, positions)
 
 
+_ctas_per_sm: dict = {}  # (device index, stream count) -> CTAs of a onesweep pass an SM holds
+
+
+def onesweep_ctas_per_sm(device: torch.device, nstreams: int) -> int:
+    """How many CTAs of a onesweep pass over nstreams streams an SM of
+    `device` holds at once, asked of the library once per device and count."""
+    key = (device.index, nstreams)
+    ctas = _ctas_per_sm.get(key)
+    if ctas is None:
+        with torch.cuda.device(device):
+            ctas = _sort_lib().glu_onesweep_ctas_per_sm(nstreams)
+        if ctas < 0:
+            fail("glu_onesweep_ctas_per_sm failed: %s (cudaError %d)", _sort_lib().glu_error_string(-ctas).decode(),
+                 -ctas)
+        _ctas_per_sm[key] = ctas
+    return ctas
+
+
 @functools.lru_cache(maxsize=64)
 def _onesweep_plan(positions: tuple) -> tuple:
     """The checked passes of a multi-tile sort by `positions` and their C
@@ -495,6 +518,8 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
                *plan, base + 4 * tmp_words)
         digit_histograms_launches += 1
         onesweep_pass_launches += npasses
+        if onesweep_ctas_per_sm(keys.device, len(streams)) >= 3:
+            count("sort.onesweep_passes_3cta", npasses)
         return outs[0], outs[1:]
     finally:
         stop(opened)

@@ -47,8 +47,8 @@ def test_bind_signatures_covers_every_entry_point():
     entries = set()
     for src in _build._CSRC.glob("*.cu"):
         entries |= set(re.findall(r"^(?:int|const char\*) (glu_\w+)\(", src.read_text(), re.M))
-    assert {"glu_digit_histograms", "glu_onesweep_pass", "glu_scan_pass", "glu_reduce", "glu_bucket_of",
-            "glu_bucket_of64"} <= entries
+    assert {"glu_digit_histograms", "glu_onesweep_pass", "glu_onesweep_ctas_per_sm", "glu_scan_pass", "glu_reduce",
+            "glu_bucket_of", "glu_bucket_of64"} <= entries
 
     class FakeLib:
         def __getattr__(self, name):

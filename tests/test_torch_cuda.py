@@ -109,6 +109,55 @@ def test_onesweep_sort_matches_the_per_pass_wrappers(dev, streams, positions, n)
     _assert_same([keys, *pays], kept)
 
 
+def test_onesweep_ctas_per_sm_on_the_h100(dev):
+    # the pass asks for 2 CTAs an SM (its registers hold it there whatever
+    # the shared memory allows); 8 streams' tiles fill an SM's shared memory
+    lib = cs._sort_lib()
+    got = {s: lib.glu_onesweep_ctas_per_sm(s) for s in (1, 2, 3, 8)}
+    assert got == {1: 2, 2: 2, 3: 2, 8: 1}, got
+    assert lib.glu_onesweep_ctas_per_sm(0) < 0 and lib.glu_onesweep_ctas_per_sm(cs.MAX_STREAMS + 1) < 0
+    assert cs.onesweep_ctas_per_sm(dev, 2) == 2 == cs.onesweep_ctas_per_sm(dev, 3)
+
+
+def _onesweep_sort_ref(keys, pays, positions):
+    """The plain version of onesweep_sort, pass by pass, on the card's tensors."""
+    groups = cs._pass_groups(positions)
+    hist = cs.digit_histograms_ref(keys, groups)
+    for g, base in zip(groups, torch.cumsum(hist, 1, dtype=torch.int32) - hist):
+        keys, pays = cs.onesweep_pass_ref(keys, pays, g, base[: 1 << len(g)])
+    return keys, pays
+
+
+@pytest.mark.parametrize("streams", [0, 1, 2, 7])
+def test_onesweep_sort_matches_plain_across_resident_ctas(dev, streams):
+    # 2^24 + 17 pairs: 2,731 tiles, so the look-back walks across the tiles
+    # of every CTA in flight, and the last tile is ragged
+    n = (1 << 24) + 17
+    keys = _words("mod3" if streams == 2 else "uniform", n, dev)
+    pays = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(streams)]
+    positions = tuple(range(32))
+    got_k, got_p = cs.onesweep_sort(keys, pays, positions)
+    want_k, want_p = _onesweep_sort_ref(keys, pays, positions)
+    _assert_same([got_k, *got_p], [want_k, *want_p])
+
+
+def test_onesweep_passes_3cta_counts_the_passes_where_an_sm_holds_3_ctas(dev, monkeypatch):
+    from glu_tpu_torch.utils import timing
+
+    n = 1 << 24
+    keys = _words("uniform", n, dev)
+    pays = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(2)]
+
+    def counted(payloads: int) -> int:
+        before = timing.summary()["counters"]["sort.onesweep_passes_3cta"]
+        cs.onesweep_sort(keys, pays[:payloads], tuple(range(32)))
+        return timing.summary()["counters"]["sort.onesweep_passes_3cta"] - before
+
+    assert counted(1) == 0 and counted(2) == 0  # 2 CTAs an SM on the H100
+    monkeypatch.setitem(cs._ctas_per_sm, (dev.index, 2), 3)  # as a card that held 3 would answer
+    assert counted(1) == 4 and counted(2) == 0
+
+
 def test_digit_histograms_every_pass_at_once(dev):
     keys = _words("uniform", 1_000_003, dev)
     groups = [tuple(range(0, 8)), tuple(range(8, 16)), tuple(range(16, 24)), (31, 25, 27)]

@@ -183,6 +183,15 @@ def test_launch_counts_read_as_they_were_and_in_summary(monkeypatch):
     assert _cuda_sort.launch_counts()["sort_single_tile"] == 0 == _cuda_reduce.launch_counts()["reduce"]
 
 
+def test_the_3cta_pass_counter_is_listed_from_0_and_stays_there_on_the_cpu():
+    assert timing.summary()["counters"]["sort.onesweep_passes_3cta"] == 0
+    k = _keys(2 * _cuda_sort.TILE + 5).view(torch.int32)
+    out, _ = _cuda_sort.onesweep_sort(k, [k], tuple(range(32)))  # the plain versions: nothing launched
+    assert torch.equal(out, k[torch.sort(k.view(torch.uint32).to(torch.int64), stable=True).indices])
+    counters = timing.summary()["counters"]
+    assert counters["sort.onesweep_passes_3cta"] == 0 and counters["launches.onesweep_pass"] == 0
+
+
 def test_trace_writes_the_spans_gained_inside_to_summary_json(tmp_path):
     k = _keys(4000)
     glu.radix_sort(k, k)  # outside: counted, not traced
