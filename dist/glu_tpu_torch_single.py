@@ -887,7 +887,8 @@ def exclusive_scan_partitions(x: torch.Tensor, op: ReduceOperator) -> torch.Tens
 Counterpart of glu_tpu/ops/_pallas_sort.py with the same contract: a stable
 LSD radix sort of u32 keys carrying a LIST of u32 payload streams, over the
 key bit positions given LSB-first, grouped into passes of up to 8 bits. Words
-travel as int32 bit patterns; the kernels read them as uint32_t.
+travel as int32 bit patterns (sort_streams takes uint32 ones too); the
+kernels read them as uint32_t.
 
 The TPU engine needed 1-bit splits, lane gathers and a DMA splicer because
 the TPU has no atomics and no scatter. The GPU has both, so each kernel is
@@ -911,21 +912,22 @@ written anew from what it computes (csrc/radix_sort.cu):
         its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
-in one call to the library. On the card it counts its passes in the counter
-sort.onesweep_passes_3cta where an SM holds 3 CTAs of them at once (the
-library's answer for the launch's stream count, asked once per device and
-count); on the H100 the pass runs 2 CTAs an SM, so the counter stays at 0.
+in one call to the library.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
 inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
 plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. `sort_pairs_single_tile` is K3's wrapper for one (keys,
-values) pair that radix_sort has checked already: it only allocates and
-launches. The plain version of a onesweep pass is built from the
-stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
-`scatter_runs_ref`), which the tests hold against the Pallas kernels.
+kernel or raises. `sort_streams` is the engine's entry for the sorts of
+ops/radix_sort.py, whose streams and positions are checked by then, and
+which may hand it uint32 words as they are: on the card it goes straight to
+K3's or the multi-tile sort's launch, which the checked wrappers
+`sort_single_tile` and `onesweep_sort` share; on CPU tensors it runs them
+on int32 views, checks and all. The plain version of a onesweep pass
+is built from the stages of the TPU engine's pass (`group_tiles_ref`,
+`run_offsets`, `scatter_runs_ref`), which the tests hold against the Pallas
+kernels.
 """
 
 from __future__ import annotations
@@ -935,11 +937,10 @@ import functools
 
 import torch
 
-from ..utils.errors import check_argument, fail
-from ..utils.timing import count, declare, start, stop
+from ..utils.errors import check_argument
+from ..utils.timing import span, start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
-FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
 MAX_FIELD_BITS = 8      # widest onesweep pass (BINS bins)
 BINS = 1 << MAX_FIELD_BITS
 MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
@@ -960,8 +961,6 @@ MAX_STREAMS = 8
 # CTAs, which on the H100 is the faster from here on and 1.5x slower at
 # 256-4,096 elements (tools/k3_ctas.py; PERF.md).
 CTA_MAX = 6144
-
-declare("sort.onesweep_passes_3cta")  # onesweep passes launched where an SM holds 3 of their CTAs
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -1246,58 +1245,44 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
     CTAs (more than one: a thread-block cluster), or on `ctas` (1 to
     MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
     checks and timings give. Returns (keys, list of payloads)."""
+    streams = _check_streams(keys, payloads)
+    positions = _check_positions(positions, 32)
+    n = keys.numel()
+    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
+    ctas = single_tile_ctas(n) if ctas is None else ctas
+    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
+                   SLICE_MAX, n, ctas)
+    if not on_cuda(keys):  # raises for a device with no kernel
+        with span("glu.engine.k3"):
+            return sort_single_tile_cluster_ref(keys, streams[1:], positions, ctas)
+    return _single_tile(streams, n, positions, ctas)
+
+
+def _single_tile(streams: list, n: int, positions: tuple, ctas: int):
+    """K3's launch on checked CUDA streams of n 4-byte words, in a span
+    glu.engine.k3: outputs empty_like the inputs (so they keep their dtype:
+    the launch reads and writes the same words), the passes' plan, one
+    launch on `ctas` CTAs. A (key, value) pair goes through
+    glu_sort_pairs_single_tile, which takes the four pointers as integers,
+    any other count of streams through glu_sort_single_tile's arrays of
+    pointers. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
     opened = start("glu.engine.k3")
     try:
-        streams = _check_streams(keys, payloads)
-        positions, plan = _single_tile_plan(tuple(positions))
-        n = keys.numel()
-        check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX,
-                       n)
-        ctas = single_tile_ctas(n) if ctas is None else ctas
-        check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
-                       "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
-                       SLICE_MAX, n, ctas)
-        if not on_cuda(keys):
-            return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
+        keys = streams[0]
+        device, plan = keys.device, _single_tile_plan(positions)[1]
         outs = [torch.empty_like(s) for s in streams]
-        _launch_single_tile(keys.device, streams, outs, n, plan, ctas)
+        if len(streams) == 2:
+            launch(_sort_lib(), "glu_sort_pairs_single_tile", device, keys.data_ptr(), streams[1].data_ptr(),
+                   outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
+        else:
+            launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
+                   *plan, ctas)
         sort_single_tile_launches += 1
         return outs[0], outs[1:]
     finally:
         stop(opened)
-
-
-def sort_pairs_single_tile(keys: torch.Tensor, values: torch.Tensor, positions: tuple):
-    """K3 on one (keys, values) pair, without sort_single_tile's checks: for
-    a caller that has checked both as contiguous 1-D CUDA tensors of 4-byte
-    words, one device and 2 to SINGLE_TILE_MAX of them (radix_sort's direct
-    path), with `positions` a tuple that _single_tile_plan takes. The
-    outputs are empty_like the inputs, so they keep their dtype; the launch
-    reads and writes the same words. Returns (keys, values)."""
-    global sort_single_tile_launches
-    opened = start("glu.engine.k3")
-    try:
-        n = keys.shape[0]
-        out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
-        _launch_single_tile(keys.device, (keys, values), (out_k, out_v), n, _single_tile_plan(positions)[1],
-                            single_tile_ctas(n))
-        sort_single_tile_launches += 1
-        return out_k, out_v
-    finally:
-        stop(opened)
-
-
-def _launch_single_tile(device: torch.device, streams, outs, n: int, plan: tuple, ctas: int) -> None:
-    """K3's launch: a (key, value) pair through glu_sort_pairs_single_tile,
-    which takes the four pointers as integers, any other count of streams
-    through glu_sort_single_tile's arrays of pointers."""
-    if len(streams) == 2:
-        launch(_sort_lib(), "glu_sort_pairs_single_tile", device, streams[0].data_ptr(), streams[1].data_ptr(),
-               outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
-    else:
-        launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
-               *plan, ctas)
 
 
 # ---------------------------------------------------------------------------
@@ -1312,48 +1297,31 @@ def _pass_groups(positions: tuple) -> list:
     return [positions[i : i + MAX_FIELD_BITS] for i in range(0, len(positions), MAX_FIELD_BITS)]
 
 
-def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positions=None):
-    """Stable LSD radix sort of int32-carried u32 keys with a LIST of payload
-    streams permuted identically (counterpart of pallas_radix_sort_streams).
-    Returns (sorted keys, list of permuted payloads): new tensors, unless
-    there is nothing to sort (n <= 1 or no bits), when the inputs come back.
-    The inputs are never modified.
+def sort_streams(keys: torch.Tensor, payloads: list, positions: tuple):
+    """Stable LSD radix sort of u32 keys with a list of payload streams
+    permuted identically, by the key bits at `positions` (a tuple,
+    LSB-first): the engine's entry for ops/radix_sort.py, whose checks the
+    streams and positions have passed, n >= 2 and positions non-empty. The
+    streams are 1-D and contiguous, of 4-byte words: uint32 or int32 bit
+    patterns, each stream's dtype as the caller has it. Returns (sorted
+    keys, list of permuted payloads), new tensors in the dtypes of the
+    inputs, which are never modified.
 
-    bit_positions (optional, LSB-first) restricts the sort to those key
-    bits; None means bits 0..4*num_steps-1 (the reference contract).
-
-    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a
-    cluster of CTAs); larger inputs take onesweep_sort: one
-    digit_histograms launch and one onesweep_pass per group of 8 bits."""
-    payloads = list(payloads)
-    if bit_positions is None:
-        positions = tuple(range(num_steps * FIELD_BITS))
-    else:
-        positions = tuple(int(b) for b in bit_positions)
+    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a cluster
+    of CTAs); larger inputs the multi-tile sort: one digit_histograms launch
+    and one onesweep_pass per group of 8 bits. CPU tensors run the checked
+    wrappers and their plain versions on int32 views."""
     n = keys.numel()
-    if not positions or n <= 1:
-        return keys, payloads
+    if not keys.is_cuda:
+        sort = sort_single_tile if n <= SINGLE_TILE_MAX else onesweep_sort
+        out_k, outs = sort(keys.view(torch.int32), [p.view(torch.int32) for p in payloads], positions)
+        return out_k.view(keys.dtype), [o.view(p.dtype) for o, p in zip(outs, payloads)]
+    # the C entries take the stream count and an int n
+    check_argument(len(payloads) < MAX_STREAMS, "at most %d payload streams, got %d", MAX_STREAMS - 1, len(payloads))
+    check_argument(0 < n < 2**31 - TILE, "stream length %d out of range", n)
     if n <= SINGLE_TILE_MAX:
-        return sort_single_tile(keys, payloads, positions)
-    return onesweep_sort(keys, payloads, positions)
-
-
-_ctas_per_sm: dict = {}  # (device index, stream count) -> CTAs of a onesweep pass an SM holds
-
-
-def onesweep_ctas_per_sm(device: torch.device, nstreams: int) -> int:
-    """How many CTAs of a onesweep pass over nstreams streams an SM of
-    `device` holds at once, asked of the library once per device and count."""
-    key = (device.index, nstreams)
-    ctas = _ctas_per_sm.get(key)
-    if ctas is None:
-        with torch.cuda.device(device):
-            ctas = _sort_lib().glu_onesweep_ctas_per_sm(nstreams)
-        if ctas < 0:
-            fail("glu_onesweep_ctas_per_sm failed: %s (cudaError %d)", _sort_lib().glu_error_string(-ctas).decode(),
-                 -ctas)
-        _ctas_per_sm[key] = ctas
-    return ctas
+        return _single_tile([keys, *payloads], n, positions, single_tile_ctas(n))
+    return _onesweep([keys, *payloads], positions)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1373,7 +1341,6 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
     each pass's digit starts (no cumsum), each pass's status words are
     zeroed in the call, and the passes write the outputs and one scratch
     buffer in turn. Returns (keys, list of payloads), new tensors."""
-    global digit_histograms_launches, onesweep_pass_launches
     payloads = list(payloads)
     if not on_cuda(keys):
         groups = _pass_groups(tuple(positions))
@@ -1383,10 +1350,18 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
             # rebinding at once frees each pass's input as soon as it is consumed
             keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
         return keys, payloads
+    return _onesweep(_check_streams(keys, payloads), tuple(positions))
+
+
+def _onesweep(streams: list, positions: tuple):
+    """The multi-tile sort's one library call on checked CUDA streams of
+    4-byte words, in a span glu.engine.onesweep. Returns (keys, list of
+    payloads)."""
+    global digit_histograms_launches, onesweep_pass_launches
     opened = start("glu.engine.onesweep")
     try:
-        streams = _check_streams(keys, payloads)
-        groups, plan = _onesweep_plan(tuple(positions))
+        keys = streams[0]
+        groups, plan = _onesweep_plan(positions)
         n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
         outs = [torch.empty_like(s) for s in streams]
         # one allocation: the scratch streams (more than one pass), then the
@@ -1402,8 +1377,6 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
                *plan, base + 4 * tmp_words)
         digit_histograms_launches += 1
         onesweep_pass_launches += npasses
-        if onesweep_ctas_per_sm(keys.device, len(streams)) >= 3:
-            count("sort.onesweep_passes_3cta", npasses)
         return outs[0], outs[1:]
     finally:
         stop(opened)
@@ -1523,10 +1496,11 @@ Contract parity: stable; u32 keys with u32 values; `num_steps` runs a partial
 sort (RadixSort.hpp:273,332): after k passes the pairs are stably sorted by
 the low 4k key bits; count <= 1 early-exits (:278-279). The public functions
 take and return torch tensors of the JAX package's dtypes (`torch.uint32`
-for u32); inside, words travel as their int32 bit patterns, since torch
-implements shifts, sums and comparisons of uint32 only by promotion or not
-at all. The sorts work out of place: the inputs are never modified (the JAX
-package donates them instead).
+for u32); inside, u32 words reach the engine as they are, and wherever torch
+computes on them they travel as their int32 bit patterns (`_words`), since
+torch implements shifts, sums, comparisons and gathers of uint32 only by
+promotion or not at all. The sorts work out of place: the inputs are never
+modified (the JAX package donates them instead).
 """
 
 from __future__ import annotations
@@ -1549,7 +1523,6 @@ _SIGN = -(1 << 31)  # int32 sign bit: flipping it turns int32 order into u32 ord
 _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope's 4 digit groups
 _STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
 
-timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
 timing.declare("sort.two_word")  # two-word sorts (u64 keys, segments) chained on the engine
 timing.declare("sort.two_word_passes")  # the 8-bit passes of both words of those sorts
 
@@ -1574,19 +1547,21 @@ def _compact(words: torch.Tensor, positions: tuple) -> torch.Tensor:
 
 
 def _sort_torch(keys: torch.Tensor, payloads, positions: tuple):
-    """Portable whole sort of int32-carried words by the key bits at
-    `positions`: ONE stable torch.sort on the compacted key, sign-flipped so
-    that int32 order is u32 order, then a gather of every stream
-    (counterpart of _sort_xla). k stable LSD passes over digits d0..d{k-1}
+    """Portable whole sort of 4-byte words by the key bits at `positions`:
+    ONE stable torch.sort on the compacted key, sign-flipped so that int32
+    order is u32 order, then a gather of every stream (counterpart of
+    _sort_xla), as int32 words. k stable LSD passes over digits d0..d{k-1}
     ARE a stable sort by the concatenated value d{k-1}..d0, so the
     permutation is identical, partial and pruned sorts included."""
+    keys, payloads = _words(keys), [_words(v) for v in payloads]
     order = torch.sort(_compact(keys, positions) ^ _SIGN, stable=True).indices
     return keys[order], [v[order] for v in payloads]
 
 
-def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend: str):
-    """Core entry: int32-carried keys + a list of payload streams permuted
-    identically, stably sorted by the key bits at `positions` (LSB-first).
+def _radix_sort_streams(keys: torch.Tensor, payloads: list, positions: tuple, backend: str):
+    """Core entry: u32 keys + a list of payload streams permuted
+    identically, as 4-byte words (uint32, or int32 bit patterns), stably
+    sorted by the key bits at `positions` (LSB-first).
     Returns new tensors, except where there is nothing to sort (no
     positions, n <= 1): then the inputs come back. The inputs are not
     modified.
@@ -1594,16 +1569,15 @@ def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend:
     A onesweep pass and K3 move at most MAX_STREAMS - 1 payloads (the JAX
     engine any number): past that the engine sorts the keys with an index
     payload, and every payload is gathered by it."""
-    payloads = list(payloads)
     if not positions or keys.numel() <= 1:
         return keys, payloads
     if backend == "torch":
         return _sort_torch(keys, payloads, positions)
     if len(payloads) < cs.MAX_STREAMS:
-        return cs.radix_sort_streams(keys, payloads, NUM_PASSES, positions)
+        return cs.sort_streams(keys, payloads, positions)
     iota = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
-    out_k, (order,) = cs.radix_sort_streams(keys, [iota], NUM_PASSES, positions)
-    return out_k, [v.index_select(0, order) for v in payloads]
+    out_k, (order,) = cs.sort_streams(keys, [iota], positions)
+    return out_k, [_words(v).index_select(0, order) for v in payloads]
 
 
 def _sort_two_words(major, minor, major_pos: tuple, minor_pos: tuple, payloads, backend: str):
@@ -1734,7 +1708,7 @@ def _norm_bits(bits, words: torch.Tensor, num_steps, backend):
     check_argument(num_steps in (0, None, NUM_PASSES), "bits cannot be combined with a partial num_steps")
     if isinstance(bits, str):
         check_argument(bits == "auto", 'bits must be None, "auto", or bit positions')
-        return _varying_bits(words, resolve_backend(backend, words))
+        return _varying_bits(_words(words), resolve_backend(backend, words))
     positions = tuple(int(b) for b in bits)
     for p in positions:
         check_argument(0 <= p < 32, "bit positions must be in 0..31, got %d", p)
@@ -1758,24 +1732,22 @@ def _router():
 _ROUTER = None
 
 
-def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None, route=None):
-    """Sort int32-carried u32 keys (already in their sortable form) with
-    payloads: high to low through the complement, which keeps ties in input
-    order and the set of varying bits; `bits` refers to the complemented
-    key. The bit positions come first, then the route (ops/router.py), on
-    (n, payloads, passes, whether the bits are the whole key): bits="auto"
-    has synchronised the host by then; `route`, where the caller has taken
-    it already. Returns (keys, list of payloads)."""
+def _sort_words(words, payloads: list, backend, *, num_steps=0, descending: bool = False, bits=None):
+    """Sort u32 keys (already in their sortable form) with a list of
+    payloads, as contiguous 4-byte words (uint32, or int32 bit patterns):
+    high to low through the complement, which keeps ties in input order and
+    the set of varying bits; `bits` refers to the complemented key. The bit
+    positions come first, then the route (ops/router.py), on (n, payloads,
+    passes, whether the bits are the whole key): bits="auto" has
+    synchronised the host by then. Returns (keys, list of payloads), each in
+    its input's dtype or as int32 words."""
     steps = _norm_steps(num_steps)
     if descending:
-        words = ~words
-    positions = _norm_bits(bits, words, num_steps, backend)
-    if positions is None:
-        positions = _STEP_BITS[steps]
-    if route is None:
-        router = _router()
-        route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
-                                     positions == FULL)
+        words = ~_words(words)
+    positions = _STEP_BITS[steps] if bits is None else _norm_bits(bits, words, num_steps, backend)
+    router = _router()
+    route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
+                                 positions == FULL)
     out_k, outs = _radix_sort_streams(words, payloads, positions, route)
     return (~out_k if descending else out_k), outs
 
@@ -1787,10 +1759,10 @@ def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = Fal
 
 def _check_inputs(keys: torch.Tensor, key_dtype: torch.dtype, **payloads) -> None:
     """keys of key_dtype and torch.uint32 payloads: 1-D, one length, one device."""
-    check_argument(keys.dim() == 1 and all(p.dim() == 1 for p in payloads.values()), "keys/values must be 1-D")
+    check_argument(keys.dim() == 1, "keys must be 1-D")
     check_argument(keys.dtype == key_dtype, "keys must be %s, got %s", key_dtype, keys.dtype)
     for name, p in payloads.items():
-        check_argument(p.shape == keys.shape, "%s length mismatch", name)
+        check_argument(p.shape == keys.shape, "%s must be 1-D and as long as the keys", name)
         check_argument(p.dtype == torch.uint32, "%s must be uint32, got %s", name, p.dtype)
         check_argument(p.device == keys.device, "keys on %s, %s on %s", keys.device, name, p.device)
 
@@ -1799,16 +1771,8 @@ def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).contiguous()
 
 
-def _k3_direct(on_cuda: bool, contiguous: bool, n: int, bits, descending: bool) -> bool:
-    """Whether a radix_sort call may go straight to K3, by what the call
-    shows: both tensors on the card and contiguous, 2 to SINGLE_TILE_MAX
-    pairs, no `bits` and ascending. The route decides after this: only a
-    call routed to "cuda" takes the direct path."""
-    return on_cuda and contiguous and 2 <= n <= cs.SINGLE_TILE_MAX and bits is None and not descending
-
-
 def _u32(w: torch.Tensor) -> torch.Tensor:
-    return w.view(torch.uint32)
+    return w if w.dtype == torch.uint32 else w.view(torch.uint32)
 
 
 def radix_sort(
@@ -1854,22 +1818,10 @@ def radix_sort(
             not (descending and num_steps not in (0, None, NUM_PASSES)),
             "descending requires the full sort (num_steps=0)",
         )
-        n = keys.shape[0]
-        if n <= 1:  # already sorted x) (reference :278-279)
+        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
             return keys, values
-        route = None
-        if _k3_direct(keys.is_cuda and values.is_cuda, keys.is_contiguous() and values.is_contiguous(), n, bits,
-                     descending):
-            # the direct path: num_steps fixes the key bits, and K3 sorts the u32 words as they are
-            positions = _STEP_BITS[_norm_steps(num_steps)]
-            router = _router()
-            route = router._sort_backend(backend, keys, n, 1, router._npasses_of(positions), positions == FULL)
-            if route == "cuda":
-                timing.count("sort.k3_direct")
-                return cs.sort_pairs_single_tile(keys, values, positions)
         out_k, (out_v,) = _sort_words(
-            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits,
-            route=route,
+            keys.contiguous(), [values.contiguous()], backend, num_steps=num_steps, descending=descending, bits=bits
         )
         return _u32(out_k), _u32(out_v)
     finally:
@@ -1885,7 +1837,7 @@ def radix_sort_keys(keys: torch.Tensor, num_steps: int = 0, *, backend: str | No
         _check_inputs(keys, torch.uint32)
         if keys.shape[0] <= 1:
             return keys
-        out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
+        out_k, _ = _sort_words(keys.contiguous(), [], backend, num_steps=num_steps, bits=bits)
         return _u32(out_k)
     finally:
         stop(call)
@@ -1907,7 +1859,8 @@ def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backen
         _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
         if keys.shape[0] <= 1:
             return keys, payloads
-        out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
+        out_k, outs = _sort_words(keys.contiguous(), [p.contiguous() for p in payloads], backend, num_steps=num_steps,
+                                  bits=bits)
         return _u32(out_k), tuple(_u32(p) for p in outs)
     finally:
         stop(call)
@@ -1966,8 +1919,8 @@ def radix_sort_f32(
         if keys.shape[0] <= 1:
             return keys, values
         out_k, (out_v,) = _sort_words(
-            _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
-            bits=bits,
+            _f32_to_sortable(keys.contiguous().view(torch.int32)), [values.contiguous()], backend,
+            descending=descending, bits=bits,
         )
         return _sortable_to_f32(out_k), _u32(out_v)
     finally:
@@ -1993,8 +1946,8 @@ def radix_sort_i32(
         _check_inputs(keys, torch.int32, values=values)
         if keys.shape[0] <= 1:
             return keys, values
-        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
-                                      bits=bits)
+        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [values.contiguous()], backend,
+                                      descending=descending, bits=bits)
         return out_k ^ _SIGN, _u32(out_v)
     finally:
         stop(call)

@@ -3,7 +3,8 @@
 Counterpart of glu_tpu/ops/_pallas_sort.py with the same contract: a stable
 LSD radix sort of u32 keys carrying a LIST of u32 payload streams, over the
 key bit positions given LSB-first, grouped into passes of up to 8 bits. Words
-travel as int32 bit patterns; the kernels read them as uint32_t.
+travel as int32 bit patterns (sort_streams takes uint32 ones too); the
+kernels read them as uint32_t.
 
 The TPU engine needed 1-bit splits, lane gathers and a DMA splicer because
 the TPU has no atomics and no scatter. The GPU has both, so each kernel is
@@ -27,21 +28,22 @@ written anew from what it computes (csrc/radix_sort.cu):
         its rank.
 
 `onesweep_sort` runs a whole multi-tile sort, the histogram and every pass,
-in one call to the library. On the card it counts its passes in the counter
-sort.onesweep_passes_3cta where an SM holds 3 CTAs of them at once (the
-library's answer for the launch's stream count, asked once per device and
-count); on the H100 the pass runs 2 CTAs an SM, so the counter stays at 0.
+in one call to the library.
 
 Each kernel has a wrapper that checks its arguments, allocates its outputs
 with torch.empty, launches on the current stream and counts its launches,
 inside a span glu.engine.k3 or glu.engine.onesweep (utils/timing.py), and a
 plain torch version with the same contract (`*_ref`). A wrapper given
 CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises. `sort_pairs_single_tile` is K3's wrapper for one (keys,
-values) pair that radix_sort has checked already: it only allocates and
-launches. The plain version of a onesweep pass is built from the
-stages of the TPU engine's pass (`group_tiles_ref`, `run_offsets`,
-`scatter_runs_ref`), which the tests hold against the Pallas kernels.
+kernel or raises. `sort_streams` is the engine's entry for the sorts of
+ops/radix_sort.py, whose streams and positions are checked by then, and
+which may hand it uint32 words as they are: on the card it goes straight to
+K3's or the multi-tile sort's launch, which the checked wrappers
+`sort_single_tile` and `onesweep_sort` share; on CPU tensors it runs them
+on int32 views, checks and all. The plain version of a onesweep pass
+is built from the stages of the TPU engine's pass (`group_tiles_ref`,
+`run_offsets`, `scatter_runs_ref`), which the tests hold against the Pallas
+kernels.
 """
 
 from __future__ import annotations
@@ -51,11 +53,10 @@ import functools
 
 import torch
 
-from ..utils.errors import check_argument, fail
-from ..utils.timing import count, declare, start, stop
+from ..utils.errors import check_argument
+from ..utils.timing import span, start, stop
 from ._common import cdiv, kernels, launch, on_cuda
 
-FIELD_BITS = 4          # key bits per num_step: the reference's 4-bit digit
 MAX_FIELD_BITS = 8      # widest onesweep pass (BINS bins)
 BINS = 1 << MAX_FIELD_BITS
 MAX_PASSES = 32 // MAX_FIELD_BITS  # passes digit_histograms counts at once
@@ -76,8 +77,6 @@ MAX_STREAMS = 8
 # CTAs, which on the H100 is the faster from here on and 1.5x slower at
 # 256-4,096 elements (tools/k3_ctas.py; PERF.md).
 CTA_MAX = 6144
-
-declare("sort.onesweep_passes_3cta")  # onesweep passes launched where an SM holds 3 of their CTAs
 
 # Launch counts of each kernel, bumped only where the kernel is launched.
 digit_histograms_launches = 0
@@ -362,58 +361,44 @@ def sort_single_tile(keys: torch.Tensor, payloads, positions, ctas: int | None =
     CTAs (more than one: a thread-block cluster), or on `ctas` (1 to
     MAX_CLUSTER, each slice at most SLICE_MAX), which only the card's
     checks and timings give. Returns (keys, list of payloads)."""
+    streams = _check_streams(keys, payloads)
+    positions = _check_positions(positions, 32)
+    n = keys.numel()
+    check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX, n)
+    ctas = single_tile_ctas(n) if ctas is None else ctas
+    check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
+                   "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
+                   SLICE_MAX, n, ctas)
+    if not on_cuda(keys):  # raises for a device with no kernel
+        with span("glu.engine.k3"):
+            return sort_single_tile_cluster_ref(keys, streams[1:], positions, ctas)
+    return _single_tile(streams, n, positions, ctas)
+
+
+def _single_tile(streams: list, n: int, positions: tuple, ctas: int):
+    """K3's launch on checked CUDA streams of n 4-byte words, in a span
+    glu.engine.k3: outputs empty_like the inputs (so they keep their dtype:
+    the launch reads and writes the same words), the passes' plan, one
+    launch on `ctas` CTAs. A (key, value) pair goes through
+    glu_sort_pairs_single_tile, which takes the four pointers as integers,
+    any other count of streams through glu_sort_single_tile's arrays of
+    pointers. Returns (keys, list of payloads)."""
     global sort_single_tile_launches
     opened = start("glu.engine.k3")
     try:
-        streams = _check_streams(keys, payloads)
-        positions, plan = _single_tile_plan(tuple(positions))
-        n = keys.numel()
-        check_argument(n <= SINGLE_TILE_MAX, "single-tile sort takes at most %d elements, got %d", SINGLE_TILE_MAX,
-                       n)
-        ctas = single_tile_ctas(n) if ctas is None else ctas
-        check_argument(1 <= ctas <= MAX_CLUSTER and single_tile_slice(n, ctas) <= SLICE_MAX,
-                       "K3 takes 1 to %d CTAs of at most %d elements, got %d elements on %d", MAX_CLUSTER,
-                       SLICE_MAX, n, ctas)
-        if not on_cuda(keys):
-            return sort_single_tile_cluster_ref(keys, list(payloads), positions, ctas)
+        keys = streams[0]
+        device, plan = keys.device, _single_tile_plan(positions)[1]
         outs = [torch.empty_like(s) for s in streams]
-        _launch_single_tile(keys.device, streams, outs, n, plan, ctas)
+        if len(streams) == 2:
+            launch(_sort_lib(), "glu_sort_pairs_single_tile", device, keys.data_ptr(), streams[1].data_ptr(),
+                   outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
+        else:
+            launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
+                   *plan, ctas)
         sort_single_tile_launches += 1
         return outs[0], outs[1:]
     finally:
         stop(opened)
-
-
-def sort_pairs_single_tile(keys: torch.Tensor, values: torch.Tensor, positions: tuple):
-    """K3 on one (keys, values) pair, without sort_single_tile's checks: for
-    a caller that has checked both as contiguous 1-D CUDA tensors of 4-byte
-    words, one device and 2 to SINGLE_TILE_MAX of them (radix_sort's direct
-    path), with `positions` a tuple that _single_tile_plan takes. The
-    outputs are empty_like the inputs, so they keep their dtype; the launch
-    reads and writes the same words. Returns (keys, values)."""
-    global sort_single_tile_launches
-    opened = start("glu.engine.k3")
-    try:
-        n = keys.shape[0]
-        out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
-        _launch_single_tile(keys.device, (keys, values), (out_k, out_v), n, _single_tile_plan(positions)[1],
-                            single_tile_ctas(n))
-        sort_single_tile_launches += 1
-        return out_k, out_v
-    finally:
-        stop(opened)
-
-
-def _launch_single_tile(device: torch.device, streams, outs, n: int, plan: tuple, ctas: int) -> None:
-    """K3's launch: a (key, value) pair through glu_sort_pairs_single_tile,
-    which takes the four pointers as integers, any other count of streams
-    through glu_sort_single_tile's arrays of pointers."""
-    if len(streams) == 2:
-        launch(_sort_lib(), "glu_sort_pairs_single_tile", device, streams[0].data_ptr(), streams[1].data_ptr(),
-               outs[0].data_ptr(), outs[1].data_ptr(), n, *plan, ctas)
-    else:
-        launch(_sort_lib(), "glu_sort_single_tile", device, _pointers(streams), _pointers(outs), len(streams), n,
-               *plan, ctas)
 
 
 # ---------------------------------------------------------------------------
@@ -428,48 +413,31 @@ def _pass_groups(positions: tuple) -> list:
     return [positions[i : i + MAX_FIELD_BITS] for i in range(0, len(positions), MAX_FIELD_BITS)]
 
 
-def radix_sort_streams(keys: torch.Tensor, payloads, num_steps: int, bit_positions=None):
-    """Stable LSD radix sort of int32-carried u32 keys with a LIST of payload
-    streams permuted identically (counterpart of pallas_radix_sort_streams).
-    Returns (sorted keys, list of permuted payloads): new tensors, unless
-    there is nothing to sort (n <= 1 or no bits), when the inputs come back.
-    The inputs are never modified.
+def sort_streams(keys: torch.Tensor, payloads: list, positions: tuple):
+    """Stable LSD radix sort of u32 keys with a list of payload streams
+    permuted identically, by the key bits at `positions` (a tuple,
+    LSB-first): the engine's entry for ops/radix_sort.py, whose checks the
+    streams and positions have passed, n >= 2 and positions non-empty. The
+    streams are 1-D and contiguous, of 4-byte words: uint32 or int32 bit
+    patterns, each stream's dtype as the caller has it. Returns (sorted
+    keys, list of permuted payloads), new tensors in the dtypes of the
+    inputs, which are never modified.
 
-    bit_positions (optional, LSB-first) restricts the sort to those key
-    bits; None means bits 0..4*num_steps-1 (the reference contract).
-
-    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a
-    cluster of CTAs); larger inputs take onesweep_sort: one
-    digit_histograms launch and one onesweep_pass per group of 8 bits."""
-    payloads = list(payloads)
-    if bit_positions is None:
-        positions = tuple(range(num_steps * FIELD_BITS))
-    else:
-        positions = tuple(int(b) for b in bit_positions)
+    Up to SINGLE_TILE_MAX elements take K3 alone (above CTA_MAX on a cluster
+    of CTAs); larger inputs the multi-tile sort: one digit_histograms launch
+    and one onesweep_pass per group of 8 bits. CPU tensors run the checked
+    wrappers and their plain versions on int32 views."""
     n = keys.numel()
-    if not positions or n <= 1:
-        return keys, payloads
+    if not keys.is_cuda:
+        sort = sort_single_tile if n <= SINGLE_TILE_MAX else onesweep_sort
+        out_k, outs = sort(keys.view(torch.int32), [p.view(torch.int32) for p in payloads], positions)
+        return out_k.view(keys.dtype), [o.view(p.dtype) for o, p in zip(outs, payloads)]
+    # the C entries take the stream count and an int n
+    check_argument(len(payloads) < MAX_STREAMS, "at most %d payload streams, got %d", MAX_STREAMS - 1, len(payloads))
+    check_argument(0 < n < 2**31 - TILE, "stream length %d out of range", n)
     if n <= SINGLE_TILE_MAX:
-        return sort_single_tile(keys, payloads, positions)
-    return onesweep_sort(keys, payloads, positions)
-
-
-_ctas_per_sm: dict = {}  # (device index, stream count) -> CTAs of a onesweep pass an SM holds
-
-
-def onesweep_ctas_per_sm(device: torch.device, nstreams: int) -> int:
-    """How many CTAs of a onesweep pass over nstreams streams an SM of
-    `device` holds at once, asked of the library once per device and count."""
-    key = (device.index, nstreams)
-    ctas = _ctas_per_sm.get(key)
-    if ctas is None:
-        with torch.cuda.device(device):
-            ctas = _sort_lib().glu_onesweep_ctas_per_sm(nstreams)
-        if ctas < 0:
-            fail("glu_onesweep_ctas_per_sm failed: %s (cudaError %d)", _sort_lib().glu_error_string(-ctas).decode(),
-                 -ctas)
-        _ctas_per_sm[key] = ctas
-    return ctas
+        return _single_tile([keys, *payloads], n, positions, single_tile_ctas(n))
+    return _onesweep([keys, *payloads], positions)
 
 
 @functools.lru_cache(maxsize=64)
@@ -489,7 +457,6 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
     each pass's digit starts (no cumsum), each pass's status words are
     zeroed in the call, and the passes write the outputs and one scratch
     buffer in turn. Returns (keys, list of payloads), new tensors."""
-    global digit_histograms_launches, onesweep_pass_launches
     payloads = list(payloads)
     if not on_cuda(keys):
         groups = _pass_groups(tuple(positions))
@@ -499,10 +466,18 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
             # rebinding at once frees each pass's input as soon as it is consumed
             keys, payloads = onesweep_pass(keys, payloads, g, base[: 1 << len(g)])
         return keys, payloads
+    return _onesweep(_check_streams(keys, payloads), tuple(positions))
+
+
+def _onesweep(streams: list, positions: tuple):
+    """The multi-tile sort's one library call on checked CUDA streams of
+    4-byte words, in a span glu.engine.onesweep. Returns (keys, list of
+    payloads)."""
+    global digit_histograms_launches, onesweep_pass_launches
     opened = start("glu.engine.onesweep")
     try:
-        streams = _check_streams(keys, payloads)
-        groups, plan = _onesweep_plan(tuple(positions))
+        keys = streams[0]
+        groups, plan = _onesweep_plan(positions)
         n, lib, npasses = keys.numel(), _sort_lib(), len(groups)
         outs = [torch.empty_like(s) for s in streams]
         # one allocation: the scratch streams (more than one pass), then the
@@ -518,8 +493,6 @@ def onesweep_sort(keys: torch.Tensor, payloads, positions):
                *plan, base + 4 * tmp_words)
         digit_histograms_launches += 1
         onesweep_pass_launches += npasses
-        if onesweep_ctas_per_sm(keys.device, len(streams)) >= 3:
-            count("sort.onesweep_passes_3cta", npasses)
         return outs[0], outs[1:]
     finally:
         stop(opened)

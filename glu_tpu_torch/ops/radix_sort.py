@@ -23,10 +23,11 @@ Contract parity: stable; u32 keys with u32 values; `num_steps` runs a partial
 sort (RadixSort.hpp:273,332): after k passes the pairs are stably sorted by
 the low 4k key bits; count <= 1 early-exits (:278-279). The public functions
 take and return torch tensors of the JAX package's dtypes (`torch.uint32`
-for u32); inside, words travel as their int32 bit patterns, since torch
-implements shifts, sums and comparisons of uint32 only by promotion or not
-at all. The sorts work out of place: the inputs are never modified (the JAX
-package donates them instead).
+for u32); inside, u32 words reach the engine as they are, and wherever torch
+computes on them they travel as their int32 bit patterns (`_words`), since
+torch implements shifts, sums, comparisons and gathers of uint32 only by
+promotion or not at all. The sorts work out of place: the inputs are never
+modified (the JAX package donates them instead).
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ _SIGN = -(1 << 31)  # int32 sign bit: flipping it turns int32 order into u32 ord
 _BYTES = tuple(tuple(range(b, b + 8)) for b in range(0, 32, 8))  # the envelope's 4 digit groups
 _STEP_BITS = tuple(tuple(range(s * RADIX_BITS)) for s in range(NUM_PASSES + 1))  # the key bits of num_steps=s
 
-timing.declare("sort.k3_direct")  # radix_sort calls that took the direct path to K3
 timing.declare("sort.two_word")  # two-word sorts (u64 keys, segments) chained on the engine
 timing.declare("sort.two_word_passes")  # the 8-bit passes of both words of those sorts
 
@@ -74,19 +74,21 @@ def _compact(words: torch.Tensor, positions: tuple) -> torch.Tensor:
 
 
 def _sort_torch(keys: torch.Tensor, payloads, positions: tuple):
-    """Portable whole sort of int32-carried words by the key bits at
-    `positions`: ONE stable torch.sort on the compacted key, sign-flipped so
-    that int32 order is u32 order, then a gather of every stream
-    (counterpart of _sort_xla). k stable LSD passes over digits d0..d{k-1}
+    """Portable whole sort of 4-byte words by the key bits at `positions`:
+    ONE stable torch.sort on the compacted key, sign-flipped so that int32
+    order is u32 order, then a gather of every stream (counterpart of
+    _sort_xla), as int32 words. k stable LSD passes over digits d0..d{k-1}
     ARE a stable sort by the concatenated value d{k-1}..d0, so the
     permutation is identical, partial and pruned sorts included."""
+    keys, payloads = _words(keys), [_words(v) for v in payloads]
     order = torch.sort(_compact(keys, positions) ^ _SIGN, stable=True).indices
     return keys[order], [v[order] for v in payloads]
 
 
-def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend: str):
-    """Core entry: int32-carried keys + a list of payload streams permuted
-    identically, stably sorted by the key bits at `positions` (LSB-first).
+def _radix_sort_streams(keys: torch.Tensor, payloads: list, positions: tuple, backend: str):
+    """Core entry: u32 keys + a list of payload streams permuted
+    identically, as 4-byte words (uint32, or int32 bit patterns), stably
+    sorted by the key bits at `positions` (LSB-first).
     Returns new tensors, except where there is nothing to sort (no
     positions, n <= 1): then the inputs come back. The inputs are not
     modified.
@@ -94,16 +96,15 @@ def _radix_sort_streams(keys: torch.Tensor, payloads, positions: tuple, backend:
     A onesweep pass and K3 move at most MAX_STREAMS - 1 payloads (the JAX
     engine any number): past that the engine sorts the keys with an index
     payload, and every payload is gathered by it."""
-    payloads = list(payloads)
     if not positions or keys.numel() <= 1:
         return keys, payloads
     if backend == "torch":
         return _sort_torch(keys, payloads, positions)
     if len(payloads) < cs.MAX_STREAMS:
-        return cs.radix_sort_streams(keys, payloads, NUM_PASSES, positions)
+        return cs.sort_streams(keys, payloads, positions)
     iota = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
-    out_k, (order,) = cs.radix_sort_streams(keys, [iota], NUM_PASSES, positions)
-    return out_k, [v.index_select(0, order) for v in payloads]
+    out_k, (order,) = cs.sort_streams(keys, [iota], positions)
+    return out_k, [_words(v).index_select(0, order) for v in payloads]
 
 
 def _sort_two_words(major, minor, major_pos: tuple, minor_pos: tuple, payloads, backend: str):
@@ -234,7 +235,7 @@ def _norm_bits(bits, words: torch.Tensor, num_steps, backend):
     check_argument(num_steps in (0, None, NUM_PASSES), "bits cannot be combined with a partial num_steps")
     if isinstance(bits, str):
         check_argument(bits == "auto", 'bits must be None, "auto", or bit positions')
-        return _varying_bits(words, resolve_backend(backend, words))
+        return _varying_bits(_words(words), resolve_backend(backend, words))
     positions = tuple(int(b) for b in bits)
     for p in positions:
         check_argument(0 <= p < 32, "bit positions must be in 0..31, got %d", p)
@@ -258,24 +259,22 @@ def _router():
 _ROUTER = None
 
 
-def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = False, bits=None, route=None):
-    """Sort int32-carried u32 keys (already in their sortable form) with
-    payloads: high to low through the complement, which keeps ties in input
-    order and the set of varying bits; `bits` refers to the complemented
-    key. The bit positions come first, then the route (ops/router.py), on
-    (n, payloads, passes, whether the bits are the whole key): bits="auto"
-    has synchronised the host by then; `route`, where the caller has taken
-    it already. Returns (keys, list of payloads)."""
+def _sort_words(words, payloads: list, backend, *, num_steps=0, descending: bool = False, bits=None):
+    """Sort u32 keys (already in their sortable form) with a list of
+    payloads, as contiguous 4-byte words (uint32, or int32 bit patterns):
+    high to low through the complement, which keeps ties in input order and
+    the set of varying bits; `bits` refers to the complemented key. The bit
+    positions come first, then the route (ops/router.py), on (n, payloads,
+    passes, whether the bits are the whole key): bits="auto" has
+    synchronised the host by then. Returns (keys, list of payloads), each in
+    its input's dtype or as int32 words."""
     steps = _norm_steps(num_steps)
     if descending:
-        words = ~words
-    positions = _norm_bits(bits, words, num_steps, backend)
-    if positions is None:
-        positions = _STEP_BITS[steps]
-    if route is None:
-        router = _router()
-        route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
-                                     positions == FULL)
+        words = ~_words(words)
+    positions = _STEP_BITS[steps] if bits is None else _norm_bits(bits, words, num_steps, backend)
+    router = _router()
+    route = router._sort_backend(backend, words, words.numel(), len(payloads), router._npasses_of(positions),
+                                 positions == FULL)
     out_k, outs = _radix_sort_streams(words, payloads, positions, route)
     return (~out_k if descending else out_k), outs
 
@@ -287,10 +286,10 @@ def _sort_words(words, payloads, backend, *, num_steps=0, descending: bool = Fal
 
 def _check_inputs(keys: torch.Tensor, key_dtype: torch.dtype, **payloads) -> None:
     """keys of key_dtype and torch.uint32 payloads: 1-D, one length, one device."""
-    check_argument(keys.dim() == 1 and all(p.dim() == 1 for p in payloads.values()), "keys/values must be 1-D")
+    check_argument(keys.dim() == 1, "keys must be 1-D")
     check_argument(keys.dtype == key_dtype, "keys must be %s, got %s", key_dtype, keys.dtype)
     for name, p in payloads.items():
-        check_argument(p.shape == keys.shape, "%s length mismatch", name)
+        check_argument(p.shape == keys.shape, "%s must be 1-D and as long as the keys", name)
         check_argument(p.dtype == torch.uint32, "%s must be uint32, got %s", name, p.dtype)
         check_argument(p.device == keys.device, "keys on %s, %s on %s", keys.device, name, p.device)
 
@@ -299,16 +298,8 @@ def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).contiguous()
 
 
-def _k3_direct(on_cuda: bool, contiguous: bool, n: int, bits, descending: bool) -> bool:
-    """Whether a radix_sort call may go straight to K3, by what the call
-    shows: both tensors on the card and contiguous, 2 to SINGLE_TILE_MAX
-    pairs, no `bits` and ascending. The route decides after this: only a
-    call routed to "cuda" takes the direct path."""
-    return on_cuda and contiguous and 2 <= n <= cs.SINGLE_TILE_MAX and bits is None and not descending
-
-
 def _u32(w: torch.Tensor) -> torch.Tensor:
-    return w.view(torch.uint32)
+    return w if w.dtype == torch.uint32 else w.view(torch.uint32)
 
 
 def radix_sort(
@@ -354,22 +345,10 @@ def radix_sort(
             not (descending and num_steps not in (0, None, NUM_PASSES)),
             "descending requires the full sort (num_steps=0)",
         )
-        n = keys.shape[0]
-        if n <= 1:  # already sorted x) (reference :278-279)
+        if keys.shape[0] <= 1:  # already sorted x) (reference :278-279)
             return keys, values
-        route = None
-        if _k3_direct(keys.is_cuda and values.is_cuda, keys.is_contiguous() and values.is_contiguous(), n, bits,
-                     descending):
-            # the direct path: num_steps fixes the key bits, and K3 sorts the u32 words as they are
-            positions = _STEP_BITS[_norm_steps(num_steps)]
-            router = _router()
-            route = router._sort_backend(backend, keys, n, 1, router._npasses_of(positions), positions == FULL)
-            if route == "cuda":
-                timing.count("sort.k3_direct")
-                return cs.sort_pairs_single_tile(keys, values, positions)
         out_k, (out_v,) = _sort_words(
-            _words(keys), [_words(values)], backend, num_steps=num_steps, descending=descending, bits=bits,
-            route=route,
+            keys.contiguous(), [values.contiguous()], backend, num_steps=num_steps, descending=descending, bits=bits
         )
         return _u32(out_k), _u32(out_v)
     finally:
@@ -385,7 +364,7 @@ def radix_sort_keys(keys: torch.Tensor, num_steps: int = 0, *, backend: str | No
         _check_inputs(keys, torch.uint32)
         if keys.shape[0] <= 1:
             return keys
-        out_k, _ = _sort_words(_words(keys), [], backend, num_steps=num_steps, bits=bits)
+        out_k, _ = _sort_words(keys.contiguous(), [], backend, num_steps=num_steps, bits=bits)
         return _u32(out_k)
     finally:
         stop(call)
@@ -407,7 +386,8 @@ def radix_sort_multi(keys: torch.Tensor, payloads, num_steps: int = 0, *, backen
         _check_inputs(keys, torch.uint32, **{f"payload {i}": p for i, p in enumerate(payloads)})
         if keys.shape[0] <= 1:
             return keys, payloads
-        out_k, outs = _sort_words(_words(keys), [_words(p) for p in payloads], backend, num_steps=num_steps, bits=bits)
+        out_k, outs = _sort_words(keys.contiguous(), [p.contiguous() for p in payloads], backend, num_steps=num_steps,
+                                  bits=bits)
         return _u32(out_k), tuple(_u32(p) for p in outs)
     finally:
         stop(call)
@@ -466,8 +446,8 @@ def radix_sort_f32(
         if keys.shape[0] <= 1:
             return keys, values
         out_k, (out_v,) = _sort_words(
-            _f32_to_sortable(keys.contiguous().view(torch.int32)), [_words(values)], backend, descending=descending,
-            bits=bits,
+            _f32_to_sortable(keys.contiguous().view(torch.int32)), [values.contiguous()], backend,
+            descending=descending, bits=bits,
         )
         return _sortable_to_f32(out_k), _u32(out_v)
     finally:
@@ -493,8 +473,8 @@ def radix_sort_i32(
         _check_inputs(keys, torch.int32, values=values)
         if keys.shape[0] <= 1:
             return keys, values
-        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [_words(values)], backend, descending=descending,
-                                      bits=bits)
+        out_k, (out_v,) = _sort_words(keys.contiguous() ^ _SIGN, [values.contiguous()], backend,
+                                      descending=descending, bits=bits)
         return out_k ^ _SIGN, _u32(out_v)
     finally:
         stop(call)

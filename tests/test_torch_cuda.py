@@ -116,7 +116,6 @@ def test_onesweep_ctas_per_sm_on_the_h100(dev):
     got = {s: lib.glu_onesweep_ctas_per_sm(s) for s in (1, 2, 3, 8)}
     assert got == {1: 2, 2: 2, 3: 2, 8: 1}, got
     assert lib.glu_onesweep_ctas_per_sm(0) < 0 and lib.glu_onesweep_ctas_per_sm(cs.MAX_STREAMS + 1) < 0
-    assert cs.onesweep_ctas_per_sm(dev, 2) == 2 == cs.onesweep_ctas_per_sm(dev, 3)
 
 
 def _onesweep_sort_ref(keys, pays, positions):
@@ -139,23 +138,6 @@ def test_onesweep_sort_matches_plain_across_resident_ctas(dev, streams):
     got_k, got_p = cs.onesweep_sort(keys, pays, positions)
     want_k, want_p = _onesweep_sort_ref(keys, pays, positions)
     _assert_same([got_k, *got_p], [want_k, *want_p])
-
-
-def test_onesweep_passes_3cta_counts_the_passes_where_an_sm_holds_3_ctas(dev, monkeypatch):
-    from glu_tpu_torch.utils import timing
-
-    n = 1 << 24
-    keys = _words("uniform", n, dev)
-    pays = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev) for _ in range(2)]
-
-    def counted(payloads: int) -> int:
-        before = timing.summary()["counters"]["sort.onesweep_passes_3cta"]
-        cs.onesweep_sort(keys, pays[:payloads], tuple(range(32)))
-        return timing.summary()["counters"]["sort.onesweep_passes_3cta"] - before
-
-    assert counted(1) == 0 and counted(2) == 0  # 2 CTAs an SM on the H100
-    monkeypatch.setitem(cs._ctas_per_sm, (dev.index, 2), 3)  # as a card that held 3 would answer
-    assert counted(1) == 4 and counted(2) == 0
 
 
 def test_digit_histograms_every_pass_at_once(dev):
@@ -281,11 +263,8 @@ def test_routed_radix_sort_launches(dev, shipped_table, n, route):
     assert launched == (engine if chosen == "cuda" else (0, 0, 0))
 
 
-def _direct_and_launches() -> tuple:
-    from glu_tpu_torch.utils import timing
-
-    counters = timing.summary()["counters"]
-    return counters["sort.k3_direct"], counters["launches.sort_single_tile"]
+def _k3_launches() -> int:
+    return cs.launch_counts()["sort_single_tile"]
 
 
 def _assert_same_as_torch(out, keys, vals, **kw) -> None:
@@ -296,20 +275,20 @@ def _assert_same_as_torch(out, keys, vals, **kw) -> None:
 
 @pytest.mark.parametrize("num_steps", [0, 3])
 @pytest.mark.parametrize("n", [2, 3, 1024, 6144, 6145, 53_000, cs.SINGLE_TILE_MAX])
-def test_direct_path_matches_torch_backend(dev, shipped_table, n, num_steps):
-    # a routed pair sort in K3's range takes the direct path: one K3 launch,
-    # counted once, the same keys and values as backend="torch"
+def test_a_routed_pair_sort_in_k3s_range_launches_one_k3_and_matches_torch(dev, shipped_table, n, num_steps):
+    # one K3 launch a call, the same keys and values as backend="torch"
     keys = _words("uniform", n, dev).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
-    before = _direct_and_launches()
+    before = cs.launch_counts()
     out = glu_tpu_torch.radix_sort(keys, vals, num_steps)
-    after = _direct_and_launches()
-    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    after = cs.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"digit_histograms": 0, "onesweep_pass": 0,
+                                                        "sort_single_tile": 1}
     _assert_same_as_torch(out, keys, vals, num_steps=num_steps)
 
 
 @pytest.mark.parametrize("case", ["non-contiguous", "descending", "bits", "past-k3", "torch", "env-torch"])
-def test_calls_off_the_direct_path_do_not_count_and_match(dev, shipped_table, monkeypatch, case):
+def test_pair_sorts_of_other_forms_match_torch(dev, shipped_table, monkeypatch, case):
     n = cs.SINGLE_TILE_MAX + 1 if case == "past-k3" else 10_001
     keys = _words("uniform", 2 * n, dev).view(torch.uint32)
     vals = torch.arange(2 * n, dtype=torch.int32, device=dev).view(torch.uint32)
@@ -317,25 +296,40 @@ def test_calls_off_the_direct_path_do_not_count_and_match(dev, shipped_table, mo
     kw = {"descending": {"descending": True}, "bits": {"bits": tuple(range(5, 29))}}.get(case, {})
     if case == "env-torch":
         monkeypatch.setenv("GLU_TPU_TORCH_BACKEND", "torch")
-    before = _direct_and_launches()[0]
     out = glu_tpu_torch.radix_sort(keys, vals, backend="torch" if case == "torch" else None, **kw)
-    assert _direct_and_launches()[0] == before
     _assert_same_as_torch(out, keys, vals, **kw)
 
 
-def test_direct_path_makes_no_host_sync(dev, shipped_table):
+def test_a_routed_pair_sort_makes_no_host_sync(dev, shipped_table):
     keys = _words("uniform", 53_000, dev).view(torch.uint32)
     vals = torch.arange(53_000, dtype=torch.int32, device=dev).view(torch.uint32)
     glu_tpu_torch.radix_sort(keys, vals)
     torch.cuda.synchronize()
-    before = _direct_and_launches()[0]
+    before = _k3_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = glu_tpu_torch.radix_sort(keys, vals)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert _direct_and_launches()[0] == before + 1
+    assert _k3_launches() == before + 1
     _assert_same_as_torch(out, keys, vals)
+
+
+@pytest.mark.parametrize("n", [1000, cs.SINGLE_TILE_MAX + 1])
+def test_sort_streams_refuses_more_streams_than_the_c_entries_take(dev, n):
+    keys = _words("uniform", n, dev)
+    with pytest.raises(glu_tpu_torch.GluError, match="at most 7 payload streams, got 8"):
+        cs.sort_streams(keys, [keys] * cs.MAX_STREAMS, tuple(range(32)))
+
+
+@pytest.mark.parametrize("n", [1000, 53_000, cs.SINGLE_TILE_MAX + 1])
+def test_sort_streams_takes_uint32_words_as_they_are(dev, n):
+    # the launch reads the words whatever their dtype; the outputs keep it
+    keys, vals = _words("uniform", n, dev), torch.arange(n, dtype=torch.int32, device=dev)
+    got_k, got_p = cs.sort_streams(keys.view(torch.uint32), [vals.view(torch.uint32), vals], tuple(range(32)))
+    want_k, want_p = cs.sort_streams(keys, [vals, vals], tuple(range(32)))
+    assert [t.dtype for t in (got_k, *got_p)] == [torch.uint32, torch.uint32, torch.int32]
+    _assert_same([got_k.view(torch.int32), got_p[0].view(torch.int32), got_p[1]], [want_k, *want_p])
 
 
 def test_buffers_and_timing_on_card(dev):

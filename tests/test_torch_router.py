@@ -497,7 +497,7 @@ ALL_CUDA = dict(FIXTURE, torch_ns_per_key={f: [[10, 1e9], [28, 1e9]] for f in ro
 def counted(monkeypatch):
     """Counts of the engine's sorts and of K5's reduces, on the CPU."""
     calls = {"engine": 0, "reduce": 0}
-    sort, fold = cs.radix_sort_streams, cr.reduce_partitions
+    sort, fold = cs.sort_streams, cr.reduce_partitions
 
     def engine(*a, **k):
         calls["engine"] += 1
@@ -507,7 +507,7 @@ def counted(monkeypatch):
         calls["reduce"] += 1
         return fold(*a, **k)
 
-    monkeypatch.setattr(cs, "radix_sort_streams", engine)
+    monkeypatch.setattr(cs, "sort_streams", engine)
     monkeypatch.setattr(cr, "reduce_partitions", reduce_partitions)
     monkeypatch.setattr(cs, "TILE", 256)
     monkeypatch.setattr(cs, "SINGLE_TILE_MAX", 512)

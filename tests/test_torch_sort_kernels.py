@@ -260,7 +260,8 @@ def test_engine_streams_match_jax(bit_positions, streams, seeded_rng, monkeypatc
     jk, jps = jax_sort_streams(
         jnp.asarray(keys), tuple(jnp.asarray(p) for p in pays), 8, "xla", bit_positions
     )
-    tk, tps = cs.radix_sort_streams(_t(keys), [_t(p) for p in pays], 8, bit_positions)
+    positions = tuple(range(32)) if bit_positions is None else bit_positions
+    tk, tps = cs.sort_streams(_t(keys), [_t(p) for p in pays], positions)
     np.testing.assert_array_equal(_u32(tk), np.asarray(jk))
     assert len(tps) == streams
     for tp, jp in zip(tps, jps):

@@ -359,13 +359,13 @@ def _spy_engine(monkeypatch) -> dict:
             seen[_name] += 1
             return _fn(*args)
         monkeypatch.setattr(cs, name, spy)
-    engine = cs.radix_sort_streams
+    engine = cs.sort_streams
 
-    def spy_engine(keys, payloads, *args):
+    def spy_engine(keys, payloads, positions):
         seen["engine payloads"].append(len(payloads))
-        return engine(keys, payloads, *args)
+        return engine(keys, payloads, positions)
 
-    monkeypatch.setattr(cs, "radix_sort_streams", spy_engine)
+    monkeypatch.setattr(cs, "sort_streams", spy_engine)
     return seen
 
 
